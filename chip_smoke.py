@@ -3,20 +3,38 @@
 
     python3 chip_smoke.py        # from the root of the repository
 
-Phases, each printing its numbers on lines of its own; any failure raises
-and the script exits non-zero:
+Phases, each printing its numbers and its seconds on lines of its own; any
+failure raises and the script exits non-zero:
   1. environment: torch and CUDA versions, the card's name and power limit;
-  2. build: the C++ host unpacker and the CUDA kernel (csrc/fused_z.cu);
-  3. kernel vs plain: fused_pipeline_z against fused_pipeline_z_reference
-     on the same CUDA tensors at S=64 and S=256 windows of 32 granules,
-     with both times;
+  2. build: the C++ host unpacker and the CUDA kernels (csrc/fused_z.cu,
+     one library with both instantiations);
+  3. kernel vs plain: fused_pipeline_z (C1-C5) and fused_frontend (C1-C4)
+     against their plain versions on the same CUDA tensors at S=1 (the
+     player's window), S=64 and S=256 windows of 32 granules, with both
+     times;
   4. decode_batch: 64 streams of three 10 s clips made by mp3tpu's own
      encoder, through mp3tpu_torch.decode_batch: lengths, kernel launches,
      the float64 oracle, a bit-identical rerun, and mp3tpu_torch.decode;
   5. config 3: 256 streams x 10 s decoded and resampled to 48 kHz, timed by
-     layer, stream 0 held against the same code on the CPU.
-The line before the last holds the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Needs no JAX and no LAME.
+     layer, stream 0 held against the same code on the CPU;
+  6. player: a 60 s stereo track through mp3tpu_torch.play: play == decode,
+     seek into a later group == the slice, loop, snapshot/restore, the EQ
+     against its CPU run, speed 0.75; time to first audio and realtime
+     factors;
+  7. scheduler: decode_batch_streams of the 64 streams at 64 slots against
+     decode_batch, and decode_batch with decode.use_native=False, which
+     goes through the scheduler.
+The kernels' JSON record gives each kernel's launches in the runs of
+decode_batch, the full play and the scheduler, each counted from 0 just
+before the run, and apart from them the calls of the kernel phase. The line
+before the last is the card's; the last line is {"ok": true, "device":
+{...}}. Needs no JAX and no LAME.
+
+    python3 chip_smoke.py --profile
+
+instead profiles the player (plain, EQ, speed 0.75), the scheduler and
+levels() under cProfile and torch.profiler, after the build, and prints the
+tables.
 """
 from __future__ import annotations
 
@@ -32,9 +50,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WIN = 32
 CLIP_S = 10.0
+TRACK_S = 60.0
 SR = 44100
 # kernel vs plain: both float32; they differ by the cube-root seed, fused
-# multiply-adds and the order of the 18-term IMDCT sums
+# multiply-adds and the order of the 18-term IMDCT sums (C1-C5) or of the
+# two-term alias sums (C1-C4); relative to the largest output value
 Z_REL_TOL = 1e-5
 
 
@@ -51,14 +71,17 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
     """Milliseconds per call of fn(): the median over `reps` timings (CUDA
-    events) of `inner` back-to-back calls each, after one warm-up; back to
-    back, the device time and not the host's launch time is measured."""
+    events) of `inner` back-to-back calls each, after one warm-up. Each
+    timing starts behind a 20 ms spin of the card, during which the host
+    enqueues the calls: the events then time the device's work, not the
+    host's launch rate."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at 1.98 GHz
         a.record()
         for _ in range(inner):
             fn()
@@ -66,6 +89,20 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
+
+
+def _wrappers() -> dict:
+    from mp3tpu_torch.kernels import fused_z as fz
+    return {"fused_z": fz.fused_pipeline_z, "fused_frontend": fz.fused_frontend}
+
+
+def zero_counts() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 def quantize_np(x: np.ndarray) -> np.ndarray:
@@ -126,7 +163,6 @@ def phase_build() -> None:
 
 
 def make_clips() -> dict:
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
     import fixtures
     from mp3tpu.encoder import encode_pcm
     sigs = {"sweep": (fixtures.tone_sweep(CLIP_S, SR), {}),
@@ -157,7 +193,7 @@ def random_symbols(S: int, seed: int, real: list):
     mixed = (rng.random(shape) < 0.5) & (bt == 2)
     smode = rng.integers(0, 144, (S, WIN, 64)).astype(np.uint8)
     smode.reshape(-1)[:144] = np.arange(144)
-    for s, st in enumerate(real):
+    for s, st in enumerate(real[:S]):
         is_[s], exp[s] = st.is_[:WIN], st.exp[:WIN]
         bt[s], mixed[s], smode[s] = st.block_type[:WIN], st.mixed[:WIN], st.smode[:WIN]
     # int32 spectrum and exponents, as the plane decode hands them over
@@ -165,40 +201,49 @@ def random_symbols(S: int, seed: int, real: list):
             (is_.astype(np.int32), exp.astype(np.int32), bt, mixed, smode)]
 
 
-def phase_kernel(clips: dict) -> dict:
-    from mp3tpu_torch.kernels.fused_z import (fused_pipeline_z,
-                                              fused_pipeline_z_reference)
+def phase_kernel(clips: dict, card: str):
+    """Each kernel against its plain version at S=1, S=64 and S=256: the
+    record of the kernel by name and S, and the kernels' calls made here,
+    which no path's count includes."""
+    from mp3tpu_torch.kernels import fused_z as fz
     from mp3tpu_torch.kernels.tables import build_tables
     from mp3tpu_torch.pipeline import load_symbols
     tables = build_tables(SR, "cuda")
     real = [load_symbols(c)[0] for c in clips.values()]
-    rec = {}
-    for S in (64, 256):
+    pairs = {"fused_z": (fz.fused_pipeline_z, fz.fused_pipeline_z_reference),
+             "fused_frontend": (fz.fused_frontend, fz.fused_frontend_reference)}
+    rec = {name: {} for name in pairs}
+    zero_counts()
+    for S in (1, 64, 256):
         args = random_symbols(S, seed=S, real=real)
-        zk = fused_pipeline_z(*args, tables)
-        zp = fused_pipeline_z_reference(*args, tables)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(zk).all()):
-            raise AssertionError("kernel z is not finite")
-        err = float((zk - zp).abs().max())
-        scale = float(zp.abs().max())
-        log(f"kernel S={S} win={WIN}: max |dz| {err:.6g}, max |z| {scale:.6g}, "
-            f"rel {err / scale:.3g} (tol {Z_REL_TOL:g})")
-        if not err <= Z_REL_TOL * scale:
-            raise AssertionError(f"kernel disagrees with plain at S={S}")
-        ms = cuda_ms(lambda: fused_pipeline_z(*args, tables))
-        plain_ms = cuda_ms(lambda: fused_pipeline_z_reference(*args, tables))
-        log(f"kernel S={S} win={WIN}: fused_z {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"(median of 7 x 10 calls; {card_line()})")
-        rec[S] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    return rec
+        for name, (kernel, plain) in pairs.items():
+            out = kernel(*args, tables)
+            want = plain(*args, tables)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name}: output not finite")
+            err = float((out - want).abs().max())
+            scale = float(want.abs().max())
+            if scale == 0:
+                raise AssertionError(f"{name}: all-zero output at S={S}")
+            log(f"kernel {name} S={S} win={WIN}: max |d| {err:.6g}, max |out| "
+                f"{scale:.6g}, rel {err / scale:.3g} (tol {Z_REL_TOL:g})")
+            if not err <= Z_REL_TOL * scale:
+                raise AssertionError(f"{name} disagrees with plain at S={S}")
+            ms = cuda_ms(lambda: kernel(*args, tables))
+            plain_ms = cuda_ms(lambda: plain(*args, tables))
+            log(f"kernel {name} S={S} win={WIN}: {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms (median of 7 x 10 calls; {card})")
+            rec[name][S] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return rec, read_counts()
 
 
-def phase_decode_batch(clips: dict) -> int:
+def phase_decode_batch(clips: dict):
+    """decode_batch of 64 streams: (the kernels' launches in it, the batch,
+    its results)."""
     import mp3tpu_torch
     from mp3tpu.oracle.decoder import decode_symbols
     from mp3tpu_torch.dsp.gapless import gapless_bounds
-    from mp3tpu_torch.kernels.fused_z import fused_pipeline_z
     from mp3tpu_torch.pipeline import load_symbols
     names = list(clips)
     batch = [clips[names[i % len(names)]] for i in range(64)]
@@ -211,14 +256,14 @@ def phase_decode_batch(clips: dict) -> int:
             f"mixed {int(st.mixed.sum())}, MS bands {int((st.smode == 1).sum())}, "
             f"intensity bands {int((st.smode >= 2).sum())}")
 
-    fused_pipeline_z.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = mp3tpu_torch.decode_batch(batch, device="cuda")
     wall = time.perf_counter() - t0
-    launches = fused_pipeline_z.launches
+    launches = read_counts()
     log(f"decode_batch: 64 streams x {CLIP_S:g} s in {wall:.3f} s "
-        f"(first call, builds included), fused_z launches {launches}")
-    if launches <= 0:
+        f"(first call, builds included), launches {launches}")
+    if launches["fused_z"] <= 0:
         raise AssertionError("decode_batch did not go through the kernel")
 
     for i, (pcm, rate) in enumerate(out):
@@ -262,7 +307,7 @@ def phase_decode_batch(clips: dict) -> int:
     for k, name in enumerate(names):
         pcm, rate = mp3tpu_torch.decode(clips[name], device="cuda")
         compare_i16(pcm, out[k][0], f"decode vs decode_batch {name}")
-    return launches
+    return launches, batch, out
 
 
 def phase_config3(clips: dict, card: str) -> None:
@@ -329,6 +374,257 @@ def phase_config3(clips: dict, card: str) -> None:
     compare_i16(got, ref[0, :n2].numpy(), "config3 stream 0 vs CPU, first 2 s")
 
 
+def make_track() -> bytes:
+    """A 60 s stereo 44.1 kHz track by mp3tpu's own encoder: 20 s each of
+    the sweep, the transients and the tonal stereo signal."""
+    import fixtures
+    from mp3tpu.encoder import encode_pcm
+    third = TRACK_S / 3
+    sig = np.concatenate([fixtures.tone_sweep(third, SR),
+                          fixtures.transients(third, SR),
+                          fixtures.tonal_stereo(third, SR)])
+    t0 = time.perf_counter()
+    data = encode_pcm(sig, SR, bitrate=128, noise_shaping=False,
+                      device_transform=False, device_loops=False,
+                      short_blocks=True, joint_stereo=True)
+    log(f"track: {TRACK_S:g} s stereo, {len(data)} bytes, encoded in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    return data
+
+
+def phase_player(track: bytes, card: str) -> dict:
+    """mp3tpu_torch.play on the card: the Player's bit-identity contracts,
+    the EQ against its CPU run, speed 0.75, and times. Returns the
+    kernels' launches in the plain full play."""
+    import mp3tpu_torch
+    from mp3tpu_torch.dsp.timestretch import N_FFT
+    from mp3tpu_torch.player import CallbackSink
+    from mp3tpu_torch.player.engine import GROUP_WINDOWS, WINDOW_GRANULES
+    eq = [6.0, 3.0, 0.0, -3.0, -6.0, 0.0, 3.0, 0.0, -2.0, 1.0]
+    ref, _ = mp3tpu_torch.decode(track, device="cuda")
+    audio_s = len(ref) / SR
+
+    def first_audio_s() -> float:
+        """Open the track and play until the sink's first push."""
+        t = {}
+
+        def cb(_pcm):
+            t.setdefault("first", time.perf_counter())
+            p.stop()
+
+        t0 = time.perf_counter()
+        p = mp3tpu_torch.play(track, sink=CallbackSink(cb), device="cuda")
+        p.play()
+        return t["first"] - t0
+
+    first_audio_s()  # warm-up
+    ttfa = [first_audio_s() for _ in range(5)]
+    log(f"player: time to first audio {1e3 * float(np.median(ttfa)):.2f} ms "
+        f"(median of 5, {1e3 * min(ttfa):.2f}-{1e3 * max(ttfa):.2f}; {card})")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    p = mp3tpu_torch.play(track, device="cuda")
+    p.play()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"player: full play {audio_s:.2f} s in {wall:.4f} s, realtime factor "
+        f"{audio_s / wall:.1f}x; launches {launches} ({card})")
+    if launches["fused_z"] <= 0:
+        raise AssertionError("play did not go through the kernel")
+    if not np.array_equal(p.sink.pcm, ref):
+        raise AssertionError("play() is not bit-identical to decode")
+    log(f"player: play() bit-identical to decode ({len(ref)} samples)")
+
+    gspan = GROUP_WINDOWS * WINDOW_GRANULES * 576
+    t_seek = (2 * gspan + 12345) / SR       # inside group 2
+    p = mp3tpu_torch.play(track, device="cuda")
+    p.seek(t_seek)
+    start = p._pos - p._start
+    p.play(until_sample=p._pos + 5 * SR)
+    if not np.array_equal(p.sink.pcm, ref[start:start + 5 * SR]):
+        raise AssertionError("seek + play is not the slice of decode")
+    log(f"player: seek({t_seek:.3f} s, group {(p._start + start) // gspan}) + "
+        f"5 s play bit-identical to the slice")
+
+    p = mp3tpu_torch.play(track, device="cuda")
+    a = round(0.355 * TRACK_S, 2)            # across a group boundary
+    b = round(a + 2.5, 2)
+    p.loop(a, b, times=3)
+    seg = int(round(b * SR)) - int(round(a * SR))
+    got = p.sink.pcm
+    if len(got) != 3 * seg or not (np.array_equal(got[:seg], got[seg:2 * seg])
+                                   and np.array_equal(got[:seg], got[2 * seg:])):
+        raise AssertionError("loop(a, b, 3) is not three equal copies")
+    log(f"player: loop({a}, {b}, 3) three equal copies of {seg} samples")
+
+    t1, t2 = int(0.28 * TRACK_S), int(0.52 * TRACK_S)
+    p1 = mp3tpu_torch.play(track, device="cuda", eq_gains_db=eq)
+    p1.play(until_sample=p1._start + t1 * SR)
+    blob = p1.snapshot()
+    p1.play(until_sample=p1._start + t2 * SR)
+    p2 = mp3tpu_torch.play(track, device="cuda", eq_gains_db=eq)
+    p2.restore(blob)
+    p2.play(until_sample=p2._start + t2 * SR)
+    if not np.array_equal(p1.sink.pcm[t1 * SR:], p2.sink.pcm):
+        raise AssertionError("snapshot/restore does not continue bit-identically")
+    log(f"player: snapshot at {t1} s, restore, continuation to {t2} s "
+        f"bit-identical (EQ on, {len(blob)} byte blob)")
+
+    # the EQ is an unfold and a float32 matmul (no cuDNN op on the path):
+    # held against the same emit on the CPU
+    n_eq = min(10, t1) * SR
+    pc = mp3tpu_torch.play(track, device="cpu", eq_gains_db=eq)
+    pc.play(until_sample=pc._start + n_eq)
+    compare_i16(p1.sink.pcm[:n_eq], pc.sink.pcm,
+                f"player EQ card vs CPU, first {n_eq // SR} s")
+    log(f"player: torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32} (unused: no cuDNN op)")
+
+    t0 = time.perf_counter()
+    p = mp3tpu_torch.play(track, device="cuda", eq_gains_db=eq)
+    p.play()
+    wall = time.perf_counter() - t0
+    log(f"player: full play with EQ, realtime factor {audio_s / wall:.1f}x "
+        f"({wall:.4f} s; {card})")
+
+    t0 = time.perf_counter()
+    p = mp3tpu_torch.play(track, device="cuda", speed=0.75)
+    p.play()
+    wall = time.perf_counter() - t0
+    n_src = p._end - p._start
+    got = len(p.sink.pcm)
+    log(f"player: speed 0.75, {got} samples out for {n_src} in "
+        f"(expected {n_src / 0.75:.0f} +- {N_FFT}); realtime factor "
+        f"{audio_s / wall:.1f}x of the source ({wall:.4f} s; {card})")
+    if abs(got - n_src / 0.75) > N_FFT:
+        raise AssertionError("speed 0.75 misses the duration contract")
+    if int(np.abs(p.sink.pcm).max()) == 0:
+        raise AssertionError("speed 0.75: silent output")
+    return launches
+
+
+def phase_scheduler(batch: list, fast: list, card: str) -> dict:
+    """decode_batch_streams of the 64 streams at 64 slots against the fast
+    path's results, and decode_batch with use_native=False through the
+    scheduler. Returns the kernels' launches in the 64-stream run."""
+    import mp3tpu_torch
+    from mp3tpu.config import resolve, set_active
+    from mp3tpu_torch.player import scheduler
+    audio_s = sum(len(pcm) for pcm, _ in fast) / SR
+    scheduler.decode_batch_streams(batch[:2], device="cuda")  # warm-up
+    zero_counts()
+    t0 = time.perf_counter()
+    out = scheduler.decode_batch_streams(batch, n_slots=64, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"scheduler: 64 streams x {CLIP_S:g} s at 64 slots in {wall:.4f} s, "
+        f"aggregate realtime factor {audio_s / wall:.1f}x; launches "
+        f"{launches} ({card})")
+    if launches["fused_z"] <= 0:
+        raise AssertionError("the scheduler did not go through the kernel")
+    compare_i16(np.concatenate([p for p, _ in out]),
+                np.concatenate([p for p, _ in fast]),
+                "scheduler vs decode_batch, 64 streams")
+
+    calls = []
+    real = scheduler.decode_batch_streams
+
+    def spy(datas, **kw):
+        calls.append(len(datas))
+        return real(datas, **kw)
+
+    scheduler.decode_batch_streams = spy
+    set_active(resolve(decode={"use_native": False}))
+    try:
+        t0 = time.perf_counter()
+        slow = mp3tpu_torch.decode_batch(batch[:6], device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        set_active(resolve())
+        scheduler.decode_batch_streams = real
+    if calls != [6]:
+        raise AssertionError(f"use_native=False did not reach the scheduler: {calls}")
+    compare_i16(np.concatenate([p for p, _ in slow]),
+                np.concatenate([p for p, _ in fast[:6]]),
+                "decode_batch use_native=False (scheduler) vs fast path, 6 streams")
+    log(f"scheduler: decode_batch use_native=False, 6 streams in {wall:.3f} s "
+        f"(pure-Python unpack; {card})")
+    return launches
+
+
+def timed(name: str, fn, *args):
+    t0 = time.perf_counter()
+    r = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+    return r
+
+
+def profile_run(what: str, fn, card: str) -> None:
+    """fn() once as a warm-up, then under cProfile (the 25 functions of
+    most own time) and under torch.profiler: its wall, its device events,
+    the device's busy time (the union of the events' intervals) and the
+    15 operators of most device time."""
+    import cProfile
+    import io
+    import pstats
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    log(f"==== {what}: wall under cProfile {time.perf_counter() - t0:.4f} s "
+        f"({card})")
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(25)
+    log(buf.getvalue())
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(b - max(a, end), 0.0)
+        end = max(end, b)
+    busy_s = (f"device busy {busy / 1e3:.3f} ms ({100 * busy / 1e6 / wall:.1f}% "
+              f"of wall)" if spans else "device busy not measured (no events)")
+    log(f"==== {what}: torch.profiler wall {wall:.4f} s, device events "
+        f"{len(spans)}, {busy_s} ({card})")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
+
+
+def profile_main(card: str) -> None:
+    """The profiles behind PERF.md's section 5 on the player, the scheduler
+    and the envelope scan."""
+    import mp3tpu_torch
+    from mp3tpu_torch.player import scheduler
+    eq = [6.0, 3.0, 0.0, -3.0, -6.0, 0.0, 3.0, 0.0, -2.0, 1.0]
+    clips = make_clips()
+    names = list(clips)
+    batch = [clips[names[i % len(names)]] for i in range(64)]
+    track = make_track()
+    for what, kw in (("player play 60 s", {}),
+                     ("player play 60 s EQ", {"eq_gains_db": eq}),
+                     ("player speed 0.75", {"speed": 0.75})):
+        profile_run(what, lambda: mp3tpu_torch.play(track, device="cuda",
+                                                     **kw).play(), card)
+    profile_run("scheduler 64x10s", lambda: scheduler.decode_batch_streams(
+        batch, n_slots=64, device="cuda"), card)
+    for when in ("cold", "warm"):
+        t0 = time.perf_counter()
+        lv = mp3tpu_torch.levels(track, device="cuda")
+        log(f"levels 60 s {when} {time.perf_counter() - t0:.4f} s {lv} ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -336,23 +632,41 @@ def main() -> int:
     # the port never uses JAX, but mp3tpu/__init__.py imports it where it is
     # installed (for a compilation cache): keep it out of this process
     sys.modules["jax"] = None
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]
     import mp3tpu_torch  # noqa: F401  (fails outside the repository)
 
-    card = phase_environment()
-    phase_build()
-    clips = make_clips()
-    krec = phase_kernel(clips)
-    launches = phase_decode_batch(clips)
-    phase_config3(clips, card)
+    card = timed("environment", phase_environment)
+    timed("build", phase_build)
+    if sys.argv[1:] == ["--profile"]:
+        profile_main(card)
+        return 0
+    clips = timed("clips", make_clips)
+    krec, check_calls = timed("kernel", phase_kernel, clips, card)
+    paths = {"decode_batch": None, "player": None, "scheduler": None}
+    paths["decode_batch"], batch, fast = timed("decode_batch",
+                                               phase_decode_batch, clips)
+    timed("config3", phase_config3, clips, card)
+    track = timed("track", make_track)
+    paths["player"] = timed("player", phase_player, track, card)
+    paths["scheduler"] = timed("scheduler", phase_scheduler, batch, fast, card)
 
-    main_shape = krec[64]   # decode_batch's shape: 64 streams x 32 granules
-    log(json.dumps({"kernels": [{
-        "name": "fused_z", "route": "cuda",
-        "source": "src/mp3tpu_torch/csrc/fused_z.cu",
-        "replaces": "src/mp3tpu/kernels/pallas_fused.py:237",
-        "launches": launches, "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"]}]}))
+    # each kernel's launches in the three paths' runs, each counted from 0;
+    # the kernel phase's calls apart. No path calls fused_frontend (nor its
+    # TPU kernel, in the JAX package), so its path launches read 0.
+    # Times and errors at decode_batch's shape: 64 streams x 32 granules.
+    replaces = {"fused_z": "src/mp3tpu/kernels/pallas_fused.py:237",
+                "fused_frontend": "src/mp3tpu/kernels/pallas_fused.py:72"}
+    kernels = []
+    for name, rep in replaces.items():
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        if check_calls[name] <= 0:
+            raise AssertionError(f"{name}: the kernel phase did not launch it")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/mp3tpu_torch/csrc/fused_z.cu", "replaces": rep,
+            "launches": sum(by_path.values()), "paths": by_path,
+            "check_calls": check_calls[name], **krec[name][64]})
+    log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

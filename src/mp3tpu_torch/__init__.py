@@ -1,8 +1,9 @@
-"""mp3tpu_torch — the batched MP3 decode of mp3tpu in PyTorch, with its
-TPU kernel rewritten in CUDA C++ for NVIDIA Hopper (sm_90a).
+"""mp3tpu_torch — the batched MP3 decode and the player of mp3tpu in
+PyTorch, with its TPU kernels rewritten in CUDA C++ for NVIDIA Hopper
+(sm_90a).
 
 The host half (container parse, C++ unpack, tables, fault counters) is
 imported from mp3tpu's JAX-free modules; this package imports torch and never
 jax.
 """
-from .api import decode, decode_batch  # noqa: F401
+from .api import decode, decode_batch, levels, loudness, play, segment  # noqa: F401

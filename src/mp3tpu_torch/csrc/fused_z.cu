@@ -6,6 +6,13 @@
 // [576, 1152] reorder+alias+IMDCT matrices to keep its matrix unit busy;
 // here each stage is done directly.
 //
+// The same kernel, instantiated with kStopAfterC4, replaces the TPU kernel
+// mp3tpu/kernels/pallas_fused.py:_kernel (launched by _fused_call, wrapped
+// by fused_frontend): it stops after C4 and writes the natural-order,
+// alias-reduced spectrum nat [pairs, 2, 576] instead of z. The TPU kernel
+// does C3-C4 as one [576, 576] matmul per flavor; here they are the index
+// map and the one-partner butterflies of the C1-C5 kernel.
+//
 // One thread block per granule pair (both channels, since the stereo stage
 // couples them), one thread per spectral line:
 //   C1  requantize: sign(is) * |is|^(4/3) * 2^(exp[band]/4), the band taken
@@ -27,6 +34,8 @@
 // design reads the symbols once and writes z once; nothing between C1 and C5
 // goes to device memory. The tables (maps, palette, coefficients) stay in
 // L1/L2, and the 10 KB of IMDCT matrices are staged in shared memory.
+// The C1-C4 variant reads the same 2.6 KB and writes 2.3 KB of nat per
+// granule-channel, with no IMDCT: memory-bound too.
 //
 // Fixed launch configuration, no atomics: equal inputs give bit-identical z.
 
@@ -41,6 +50,7 @@ constexpr int kTaps = 18;     // lines per subband
 constexpr int kOut = 36;      // IMDCT outputs per subband
 constexpr int kZ = 32 * kOut; // z values per granule-channel
 
+template <bool kStopAfterC4>
 __global__ void __launch_bounds__(kLines)
 fused_z_kernel(const int32_t* __restrict__ is_, const int32_t* __restrict__ exp_,
                const int32_t* __restrict__ block_type,
@@ -50,16 +60,19 @@ fused_z_kernel(const int32_t* __restrict__ is_, const int32_t* __restrict__ exp_
                const int32_t* __restrict__ n_alias,
                const float* __restrict__ palette4, int n_palette,
                const float* __restrict__ alias_cs, const float* __restrict__ alias_ca,
-               const float* __restrict__ imdct_blocks, float* __restrict__ z,
+               const float* __restrict__ imdct_blocks, float* __restrict__ out,
                int64_t n_pairs) {
-  __shared__ float blocks[4 * kTaps * kOut];
+  // out: z [pairs, 2, 32, 36], or nat [pairs, 2, 576] when kStopAfterC4
+  __shared__ float blocks[kStopAfterC4 ? 1 : 4 * kTaps * kOut];
   __shared__ float xs[2][kLines];
   __shared__ float vs[2][kLines];
 
   const int64_t n = blockIdx.x;
   if (n >= n_pairs) return;  // the whole block leaves together
   const int i = threadIdx.x;
-  for (int k = i; k < 4 * kTaps * kOut; k += kLines) blocks[k] = imdct_blocks[k];
+  if constexpr (!kStopAfterC4) {
+    for (int k = i; k < 4 * kTaps * kOut; k += kLines) blocks[k] = imdct_blocks[k];
+  }
 
   int bt[2], fl[2];
   for (int c = 0; c < 2; ++c) {
@@ -113,28 +126,49 @@ fused_z_kernel(const int32_t* __restrict__ is_, const int32_t* __restrict__ exp_
     }
     w[c] = v;
   }
-  for (int c = 0; c < 2; ++c) xs[c][i] = w[c];
-  __syncthreads();
+  if constexpr (kStopAfterC4) {
+    for (int c = 0; c < 2; ++c) out[(n * 2 + c) * kLines + i] = w[c];
+  } else {
+    for (int c = 0; c < 2; ++c) xs[c][i] = w[c];
+    __syncthreads();
 
-  // ---- C5 IMDCT + window: output o = subband * 36 + j, 4 per thread
-  for (int c = 0; c < 2; ++c) {
-    float* zc = z + (n * 2 + c) * kZ;
-    for (int h = 0; h < 2; ++h) {
-      const int o = i + h * kLines;
-      const int so = o / kOut, j = o % kOut;
-      const int b = (fl[c] == 2 && so < 2) ? 0 : bt[c];
-      const float* m = blocks + b * kTaps * kOut + j;
-      const float* v = xs[c] + so * kTaps;
-      float acc = 0.f;
+    // ---- C5 IMDCT + window: output o = subband * 36 + j, 4 per thread
+    for (int c = 0; c < 2; ++c) {
+      float* zc = out + (n * 2 + c) * kZ;
+      for (int h = 0; h < 2; ++h) {
+        const int o = i + h * kLines;
+        const int so = o / kOut, j = o % kOut;
+        const int b = (fl[c] == 2 && so < 2) ? 0 : bt[c];
+        const float* m = blocks + b * kTaps * kOut + j;
+        const float* v = xs[c] + so * kTaps;
+        float acc = 0.f;
 #pragma unroll
-      for (int t = 0; t < kTaps; ++t) acc += v[t] * m[t * kOut];
-      zc[o] = acc;
+        for (int t = 0; t < kTaps; ++t) acc += v[t] * m[t * kOut];
+        zc[o] = acc;
+      }
     }
   }
 }
 
+template <bool kStopAfterC4>
+int launch(const void* is_, const void* exp_, const void* block_type, const void* mixed,
+           const void* smode, const void* band_map, const void* reorder_map,
+           const void* n_alias, const void* palette4, int n_palette, const void* alias_cs,
+           const void* alias_ca, const void* imdct_blocks, void* out, int64_t n_pairs,
+           void* stream) {
+  if (n_pairs <= 0) return 0;
+  fused_z_kernel<kStopAfterC4><<<(unsigned)n_pairs, kLines, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)is_, (const int32_t*)exp_, (const int32_t*)block_type,
+      (const uint8_t*)mixed, (const uint8_t*)smode, (const int32_t*)band_map,
+      (const int32_t*)reorder_map, (const int32_t*)n_alias, (const float*)palette4,
+      n_palette, (const float*)alias_cs, (const float*)alias_ca,
+      (const float*)imdct_blocks, (float*)out, n_pairs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// C1-C5: z [n_pairs, 2, 32, 36]
 extern "C" int mp3tpu_fused_z(const void* is_, const void* exp_, const void* block_type,
                               const void* mixed, const void* smode,
                               const void* band_map, const void* reorder_map,
@@ -142,14 +176,22 @@ extern "C" int mp3tpu_fused_z(const void* is_, const void* exp_, const void* blo
                               const void* alias_cs, const void* alias_ca,
                               const void* imdct_blocks, void* z, int64_t n_pairs,
                               void* stream) {
-  if (n_pairs <= 0) return 0;
-  fused_z_kernel<<<(unsigned)n_pairs, kLines, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)is_, (const int32_t*)exp_, (const int32_t*)block_type,
-      (const uint8_t*)mixed, (const uint8_t*)smode, (const int32_t*)band_map,
-      (const int32_t*)reorder_map, (const int32_t*)n_alias, (const float*)palette4,
-      n_palette, (const float*)alias_cs, (const float*)alias_ca,
-      (const float*)imdct_blocks, (float*)z, n_pairs);
-  return (int)cudaGetLastError();
+  return launch<false>(is_, exp_, block_type, mixed, smode, band_map, reorder_map,
+                       n_alias, palette4, n_palette, alias_cs, alias_ca, imdct_blocks,
+                       z, n_pairs, stream);
+}
+
+// C1-C4: nat [n_pairs, 2, 576]
+extern "C" int mp3tpu_fused_frontend(const void* is_, const void* exp_,
+                                     const void* block_type, const void* mixed,
+                                     const void* smode, const void* band_map,
+                                     const void* reorder_map, const void* n_alias,
+                                     const void* palette4, int n_palette,
+                                     const void* alias_cs, const void* alias_ca,
+                                     void* nat, int64_t n_pairs, void* stream) {
+  return launch<true>(is_, exp_, block_type, mixed, smode, band_map, reorder_map,
+                      n_alias, palette4, n_palette, alias_cs, alias_ca, nullptr, nat,
+                      n_pairs, stream);
 }
 
 extern "C" const char* mp3tpu_cuda_error_string(int code) {

@@ -1,9 +1,12 @@
 """C1-C5 of the granule chain in one step: requantize, stereo mix, reorder,
 alias reduction, IMDCT and window (counterpart of
-mp3tpu.kernels.pallas_fused.fused_pipeline_z, the TPU kernel _kernel_z).
+mp3tpu.kernels.pallas_fused.fused_pipeline_z, the TPU kernel _kernel_z), and
+its first four stages alone (counterpart of fused_frontend, the TPU kernel
+_kernel).
 
-fused_pipeline_z runs the CUDA kernel of csrc/fused_z.cu on CUDA tensors and
-fused_pipeline_z_reference, its plain PyTorch version, on CPU tensors.
+fused_pipeline_z and fused_frontend run the two instantiations of the CUDA
+kernel of csrc/fused_z.cu on CUDA tensors, and their plain PyTorch versions,
+fused_pipeline_z_reference and fused_frontend_reference, on CPU tensors.
 """
 from __future__ import annotations
 
@@ -33,17 +36,16 @@ def _flavor(block_type: torch.Tensor, mixed: torch.Tensor) -> torch.Tensor:
     return torch.where(short, torch.where(mixed.bool(), 2, 1), 0)
 
 
-def fused_pipeline_z_reference(is_, exp, block_type, mixed, smode,
-                               tables: DeviceTables) -> torch.Tensor:
-    """Plain C1-C5 (the XLA path's _granule_pipeline_xla up to z, with
+def fused_frontend_reference(is_, exp, block_type, mixed, smode,
+                             tables: DeviceTables) -> torch.Tensor:
+    """Plain C1-C4 (the XLA path's _granule_pipeline_xla up to nat, with
     direct indexing where it multiplies by one-hot matrices).
 
     is_ int [S,G,2,576], exp int [S,G,2,64], block_type int [S,G,2],
-    mixed bool [S,G,2], smode uint8 [S,G,64] -> z float32 [S,G,2,32,36]."""
-    S, G = is_.shape[:2]
+    mixed bool [S,G,2], smode uint8 [S,G,64] -> natural-order,
+    alias-reduced spectrum float32 [S,G,2,576]."""
     iv = is_.float()
-    bt = block_type.long()
-    fl = _flavor(bt, mixed)                                  # [S,G,2]
+    fl = _flavor(block_type, mixed)                          # [S,G,2]
 
     # C1 requantize: sign * |is|^(4/3) * 2^(exp[band]/4)
     bands = tables.band_map.long()[fl]                       # [S,G,2,576]
@@ -59,9 +61,21 @@ def fused_pipeline_z_reference(is_, exp, block_type, mixed, smode,
 
     # C3 reorder + C4 alias butterflies (each line has at most one partner)
     v = xr.gather(-1, tables.reorder_map.long()[fl])
-    v = (v * tables.alias_self[fl]
-         + v.gather(-1, tables.alias_partner[fl]) * tables.alias_cross[fl])
+    return (v * tables.alias_self[fl]
+            + v.gather(-1, tables.alias_partner[fl]) * tables.alias_cross[fl])
+
+
+def fused_pipeline_z_reference(is_, exp, block_type, mixed, smode,
+                               tables: DeviceTables) -> torch.Tensor:
+    """Plain C1-C5: fused_frontend_reference, then the IMDCT and window.
+
+    Takes the inputs of fused_frontend_reference -> z float32
+    [S,G,2,32,36]."""
+    S, G = is_.shape[:2]
+    v = fused_frontend_reference(is_, exp, block_type, mixed, smode, tables)
     v = v.reshape(S, G, 2, 32, 18)
+    bt = block_type.long()
+    fl = _flavor(bt, mixed)
 
     # C5 IMDCT + window; per-subband block type (mixed: subbands 0-1 long)
     sb = torch.arange(32, device=v.device)
@@ -78,6 +92,10 @@ def _library() -> ctypes.CDLL:
     lib.mp3tpu_fused_z.restype = ctypes.c_int
     lib.mp3tpu_fused_z.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.c_int64, ctypes.c_void_p])
+    lib.mp3tpu_fused_frontend.restype = ctypes.c_int
+    lib.mp3tpu_fused_frontend.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 3
         + [ctypes.c_int64, ctypes.c_void_p])
     lib.mp3tpu_cuda_error_string.restype = ctypes.c_char_p
     lib.mp3tpu_cuda_error_string.argtypes = [ctypes.c_int]
@@ -101,6 +119,40 @@ def _check(is_, exp, block_type, mixed, smode, tables):
                              f"{tables.band_map.device}")
 
 
+def _launch(entry: str, out_tail: tuple, is_, exp, block_type, mixed, smode,
+            tables: DeviceTables) -> torch.Tensor:
+    """Launch one instantiation of the kernel of csrc/fused_z.cu (`entry`,
+    writing float32 [S, G, 2, *out_tail]) on the current CUDA stream."""
+    S, G = is_.shape[:2]
+    dev = is_.device
+    ins = [is_.to(torch.int32).contiguous(), exp.to(torch.int32).contiguous(),
+           block_type.to(torch.int32).contiguous(),
+           mixed.contiguous().view(torch.uint8), smode.contiguous()]
+    t = tables
+    consts = [t.band_map, t.reorder_map, t.n_alias, t.palette4]
+    out = torch.empty((S, G, 2) + out_tail, dtype=torch.float32, device=dev)
+    if S * G == 0:
+        return out
+    blocks = [t.imdct_blocks.data_ptr()] if entry == "mp3tpu_fused_z" else []
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(
+            *(a.data_ptr() for a in ins + consts), t.palette4.shape[0],
+            t.alias_cs.data_ptr(), t.alias_ca.data_ptr(), *blocks,
+            out.data_ptr(), S * G, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: "
+                           + lib.mp3tpu_cuda_error_string(rc).decode())
+    return out
+
+
+def _device_type(t: torch.Tensor, name: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    return t.device.type
+
+
 def fused_pipeline_z(is_, exp, block_type, mixed, smode,
                      tables: DeviceTables) -> torch.Tensor:
     """C1-C5 -> z float32 [S,G,2,32,36], ready for the overlap-add.
@@ -109,33 +161,34 @@ def fused_pipeline_z(is_, exp, block_type, mixed, smode,
     first use) and counts the launch in fused_pipeline_z.launches; on CPU
     tensors it runs fused_pipeline_z_reference."""
     _check(is_, exp, block_type, mixed, smode, tables)
-    dev = is_.device
-    if dev.type == "cpu":
+    if _device_type(is_, "fused_pipeline_z") == "cpu":
         return fused_pipeline_z_reference(is_, exp, block_type, mixed, smode,
                                           tables)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_pipeline_z runs on cpu or cuda, not {dev}")
-    S, G = is_.shape[:2]
-    ins = [is_.to(torch.int32).contiguous(), exp.to(torch.int32).contiguous(),
-           block_type.to(torch.int32).contiguous(),
-           mixed.contiguous().view(torch.uint8), smode.contiguous()]
-    t = tables
-    consts = [t.band_map, t.reorder_map, t.n_alias, t.palette4]
-    z = torch.empty((S, G, 2, 32, 36), dtype=torch.float32, device=dev)
-    if S * G == 0:
-        return z
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mp3tpu_fused_z(
-            *(a.data_ptr() for a in ins + consts), t.palette4.shape[0],
-            t.alias_cs.data_ptr(), t.alias_ca.data_ptr(),
-            t.imdct_blocks.data_ptr(), z.data_ptr(), S * G, stream)
-    if rc != 0:
-        raise RuntimeError("fused_z kernel launch failed: "
-                           + lib.mp3tpu_cuda_error_string(rc).decode())
+    z = _launch("mp3tpu_fused_z", (32, 36), is_, exp, block_type, mixed,
+                smode, tables)
     fused_pipeline_z.launches += 1
     return z
 
 
 fused_pipeline_z.launches = 0
+
+
+def fused_frontend(is_, exp, block_type, mixed, smode,
+                   tables: DeviceTables) -> torch.Tensor:
+    """C1-C4 -> natural-order, alias-reduced spectrum float32 [S,G,2,576].
+
+    On CUDA tensors it launches the C1-C4 instantiation of the kernel of
+    csrc/fused_z.cu and counts the launch in fused_frontend.launches; on
+    CPU tensors it runs fused_frontend_reference. No decode path calls it:
+    the JAX package has none either."""
+    _check(is_, exp, block_type, mixed, smode, tables)
+    if _device_type(is_, "fused_frontend") == "cpu":
+        return fused_frontend_reference(is_, exp, block_type, mixed, smode,
+                                        tables)
+    nat = _launch("mp3tpu_fused_frontend", (576,), is_, exp, block_type,
+                  mixed, smode, tables)
+    fused_frontend.launches += 1
+    return nat
+
+
+fused_frontend.launches = 0

@@ -111,6 +111,21 @@ def decode_window_group(is_, exp, block_type, mixed, smode, state,
     return torch.cat(out, dim=1), state
 
 
+def decode_window(is_, exp, block_type, mixed, smode, state, sample_rate: int):
+    """One window of S streams -> (float32 PCM [S, G*576, 2], state)."""
+    return decoder_for(sample_rate, is_.device)(is_, exp, block_type, mixed,
+                                                smode, state)
+
+
+def decode_window_i16(is_, exp, block_type, mixed, smode, state,
+                      sample_rate: int):
+    """One window of S streams -> (int16 PCM [S, G*576, 2], state): the
+    scheduler's step."""
+    pcm, state = decode_window(is_, exp, block_type, mixed, smode, state,
+                               sample_rate)
+    return quantize_i16(pcm), state
+
+
 # ---- packed planes -> symbols (integer-exact)
 
 def _apply_escapes(v, esc_pos, esc_val):

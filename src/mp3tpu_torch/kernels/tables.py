@@ -140,7 +140,7 @@ def state_from_numpy(state, device="cuda"):
         return tuple(state_from_numpy(v, device) for v in state)
     if isinstance(state, (int, np.integer)):
         return int(state)
-    return torch.as_tensor(np.asarray(state, np.float32), device=device)
+    return torch.tensor(np.asarray(state, np.float32), device=device)
 
 
 def state_to_numpy(state):

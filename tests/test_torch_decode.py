@@ -2,10 +2,17 @@
 backend) on the same files; the batch path is in test_torch_decode_batch.py."""
 import numpy as np
 import pytest
+import torch
 
 import fixtures
 import mp3tpu
 import mp3tpu_torch
+
+# The suite runs in several pytest-xdist workers, each of which imports
+# this module: one torch thread per worker, or the workers' intra-op thread
+# pools oversubscribe the cores (measured: the port's tests ran 4.5x longer
+# on 8 cores with 6 workers).
+torch.set_num_threads(1)
 
 
 def crafted(kind: str) -> bytes:

@@ -45,9 +45,13 @@ def test_decodes_without_jax(tmp_path):
         f"[(b, _)] = mp3tpu_torch.decode_batch([{str(src)!r}], device='cpu')\n"
         f"np.save({str(tmp_path / 'pcm.npy')!r}, pcm)\n"
         f"np.save({str(tmp_path / 'batch.npy')!r}, b)\n"
+        f"p = mp3tpu_torch.play({str(src)!r}, device='cpu', speed=0.75)\n"
+        "p.play(); assert len(p.sink.pcm) > len(pcm)\n"
+        f"mp3tpu_torch.levels({str(src)!r}, device='cpu')\n"
         "assert sys.modules['jax'] is None\n"
         "print('ok', sr)\n")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    # one OpenMP thread, like the test workers (test_torch_decode.py)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")]))
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                        capture_output=True, text=True, timeout=300)
