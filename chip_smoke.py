@@ -6,18 +6,25 @@
 Phases, each printing its numbers and its seconds on lines of its own; any
 failure raises and the script exits non-zero:
   1. environment: torch and CUDA versions, the card's name and power limit;
-  2. build: the C++ host unpacker and the CUDA kernels (csrc/fused_z.cu,
-     one library with both instantiations);
+  2. build: the port's C++ host unpacker (csrc/unpack.cpp, g++) and the
+     CUDA kernels (csrc/fused_z.cu, nvcc), both at once; the run fails if
+     either does not build or load;
   3. kernel vs plain: fused_pipeline_z (C1-C5) and fused_frontend (C1-C4)
-     against their plain versions on the same CUDA tensors at S=1 (the
-     player's window), S=64 and S=256 windows of 32 granules, with both
-     times;
-  4. decode_batch: 64 streams of three 10 s clips made by mp3tpu's own
-     encoder, through mp3tpu_torch.decode_batch: lengths, kernel launches,
-     the float64 oracle, a bit-identical rerun, and mp3tpu_torch.decode;
+     through kernels/selfcheck.py's checks (odd pair counts, every input
+     type, bit-identity across launches and batch sizes, zero pairs), then
+     against their plain versions at the shapes and types each path hands
+     them (KERNEL_CASES: the player's S=1, decode_batch's and the
+     scheduler's S=64, config 3's S=256, windows of 32 granules), with the
+     times (warm, and with a cold L2 at S >= 64), the bytes moved, the least
+     time the card could take for them and the share of it reached;
+  4. decode_batch: 64 streams of the three 10 s clips of tests/torch_clips
+     (made by mp3tpu's own encoder and committed), through
+     mp3tpu_torch.decode_batch: lengths, kernel launches, the float64
+     oracle, a bit-identical rerun, and mp3tpu_torch.decode;
   5. config 3: 256 streams x 10 s decoded and resampled to 48 kHz, timed by
      layer, stream 0 held against the same code on the CPU;
-  6. player: a 60 s stereo track through mp3tpu_torch.play: play == decode,
+  6. player: the 60 s stereo track of tests/torch_clips through
+     mp3tpu_torch.play: play == decode,
      seek into a later group == the slice, loop, snapshot/restore, the EQ
      against its CPU run, speed 0.75; time to first audio and realtime
      factors;
@@ -28,13 +35,20 @@ The kernels' JSON record gives each kernel's launches in the runs of
 decode_batch, the full play and the scheduler, each counted from 0 just
 before the run, and apart from them the calls of the kernel phase. The line
 before the last is the card's; the last line is {"ok": true, "device":
-{...}}. Needs no JAX and no LAME.
+{...}}. Imports nothing of JAX and nothing of mp3tpu (the JAX package);
+needs no LAME.
 
     python3 chip_smoke.py --profile
 
 instead profiles the player (plain, EQ, speed 0.75), the scheduler and
 levels() under cProfile and torch.profiler, after the build, and prints the
 tables.
+
+    python3 chip_smoke.py --variants
+
+instead times csrc/fused_z.cu's measurement variants (VARIANTS: a deeper
+input ring, fewer blocks per SM, C5's arithmetic left out) against the
+kernel as built.
 """
 from __future__ import annotations
 
@@ -52,10 +66,7 @@ WIN = 32
 CLIP_S = 10.0
 TRACK_S = 60.0
 SR = 44100
-# kernel vs plain: both float32; they differ by the cube-root seed, fused
-# multiply-adds and the order of the 18-term IMDCT sums (C1-C5) or of the
-# two-term alias sums (C1-C4); relative to the largest output value
-Z_REL_TOL = 1e-5
+CLIPS = os.path.join(ROOT, "tests", "torch_clips")
 
 
 def log(*a):
@@ -137,113 +148,182 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
-    native = os.path.join(ROOT, "src", "mp3tpu", "native")
-    t0 = time.perf_counter()
-    # spec_tables.h is committed: build the library without regenerating
-    # it, and without -flto, whose linker plugin the GPU host may lack
-    flags = ("-O3 -march=native -funroll-loops -std=c++17 -fPIC -Wall -Wextra "
-             "-fno-exceptions")
-    r = subprocess.run(["make", "-s", "-C", native, "-o", "spec_tables.h",
-                        f"CXXFLAGS={flags}"], capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"make of the C++ unpacker failed:\n{r.stdout}{r.stderr}")
-    from mp3tpu.bitstream import native as nat
-    if not nat.available():
-        raise RuntimeError("the C++ unpacker built but does not load")
-    log(f"build: C++ unpacker {time.perf_counter() - t0:.2f} s")
-
+    """The C++ unpacker and the CUDA library, built at once; raises if
+    either does not build or load."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mp3tpu_torch.bitstream import native
     from mp3tpu_torch.kernels import build, fused_z
-    t0 = time.perf_counter()
-    path = build.build("fused_z.cu")
-    fused_z._library()
-    log(f"build: fused_z.cu {time.perf_counter() - t0:.2f} s -> "
-        f"{os.path.relpath(path, ROOT)}")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        log(f"  nvcc: {line}")
 
-
-def make_clips() -> dict:
-    import fixtures
-    from mp3tpu.encoder import encode_pcm
-    sigs = {"sweep": (fixtures.tone_sweep(CLIP_S, SR), {}),
-            "transients": (fixtures.transients(CLIP_S, SR), {"short_blocks": True}),
-            "tonal": (fixtures.tonal_stereo(CLIP_S, SR), {"joint_stereo": True})}
-    clips = {}
-    for name, (sig, kw) in sigs.items():
+    def timed_build(fn):
         t0 = time.perf_counter()
-        clips[name] = encode_pcm(sig, SR, bitrate=128, noise_shaping=False,
-                                 device_transform=False, device_loops=False,
-                                 **kw)
-        log(f"clip {name}: {len(clips[name])} bytes, encoded in "
-            f"{time.perf_counter() - t0:.2f} s")
+        return fn(), time.perf_counter() - t0
+
+    nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    log(f"build: {nvcc[-1]}")
+    with ThreadPoolExecutor(2) as ex:
+        unpacker = ex.submit(timed_build, native._load)
+        kernels = ex.submit(timed_build, fused_z._library)
+        lib, s_unpack = unpacker.result()
+        _, s_cuda = kernels.result()
+    if lib is None:
+        raise RuntimeError("the C++ unpacker did not load (MP3TPU_NO_NATIVE "
+                           "set, or no g++)")
+    for src, s in (("unpack.cpp", s_unpack), ("fused_z.cu", s_cuda)):
+        path = build.build(src)
+        log(f"build: {src} {s:.2f} s -> {os.path.relpath(path, ROOT)}")
+        for line in path.with_suffix(".log").read_text().splitlines():
+            log(f"  {src}: {line}")
+
+
+def read_clips() -> dict:
+    """The three 10 s clips of tests/torch_clips (made by mp3tpu's encoder:
+    tests/test_torch_host.py holds the recipe and re-encodes them)."""
+    clips = {}
+    for name in ("sweep", "transients", "tonal"):
+        with open(os.path.join(CLIPS, f"{name}.mp3"), "rb") as f:
+            clips[name] = f.read()
+        log(f"clip {name}: {len(clips[name])} bytes")
     return clips
 
 
-def random_symbols(S: int, seed: int, real: list):
-    """Seeded symbols [S, WIN, ...] covering every block type, mixed
-    blocks, all 144 palette indices and escape-sized values; the first
-    streams are replaced by real windows."""
-    rng = np.random.default_rng(seed)
-    shape = (S, WIN, 2)
-    is_ = rng.integers(-15, 16, shape + (576,)).astype(np.int16)
-    big = rng.random(is_.shape) < 0.005
-    is_[big] = rng.integers(-8206, 8207, int(big.sum()))
-    exp = rng.integers(-80, 8, shape + (64,)).astype(np.int16)
-    bt = rng.integers(0, 4, shape).astype(np.int8)
-    mixed = (rng.random(shape) < 0.5) & (bt == 2)
-    smode = rng.integers(0, 144, (S, WIN, 64)).astype(np.uint8)
-    smode.reshape(-1)[:144] = np.arange(144)
-    for s, st in enumerate(real[:S]):
-        is_[s], exp[s] = st.is_[:WIN], st.exp[:WIN]
-        bt[s], mixed[s], smode[s] = st.block_type[:WIN], st.mixed[:WIN], st.smode[:WIN]
-    # int32 spectrum and exponents, as the plane decode hands them over
-    return [torch.from_numpy(a).cuda() for a in
-            (is_.astype(np.int32), exp.astype(np.int32), bt, mixed, smode)]
+# the kernel phase's shapes: (S windows of WIN granules, spectrum and
+# exponent types, the path that hands the kernel these)
+KERNEL_CASES = (
+    (1, ("int16", "int16"), "player"),
+    (64, ("int32", "int32"), "decode_batch, 4-bit arenas"),
+    (64, ("int32", "int16"), "decode_batch, widened planes"),
+    (64, ("int16", "int16"), "scheduler"),
+    (256, ("int32", "int32"), "config 3"),
+)
+
+
+def cuda_ms_cold(fn, args: list, nbytes: int, reps: int = 7) -> float:
+    """Milliseconds per call of fn(*inputs) with a cold L2: each timing
+    (CUDA events, behind a 20 ms spin as in cuda_ms) runs back to back over
+    copies of `args` whose inputs and kept outputs (`nbytes` a call) fill
+    the L2 four times over, so no call finds the last one's data there. The
+    median of `reps` timings, after one untimed pass."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
+    n = min(64, max(2, -(-4 * l2 // nbytes)))
+    sets = [[a.clone() for a in args] for _ in range(n)]
+    outs = [fn(*x) for x in sets]
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        del outs
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)
+        a.record()
+        outs = [fn(*x) for x in sets]
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
 
 
 def phase_kernel(clips: dict, card: str):
-    """Each kernel against its plain version at S=1, S=64 and S=256: the
-    record of the kernel by name and S, and the kernels' calls made here,
-    which no path's count includes."""
-    from mp3tpu_torch.kernels import fused_z as fz
+    """Each kernel through selfcheck's checks, then against its plain
+    version at the shapes and types each path hands it (KERNEL_CASES),
+    with its times (warm and with a cold L2) and its bound: the records of
+    the kernel by case, and the kernels' calls made here, which no path's
+    count includes."""
+    from mp3tpu_torch.kernels import selfcheck as sc
     from mp3tpu_torch.kernels.tables import build_tables
     from mp3tpu_torch.pipeline import load_symbols
     tables = build_tables(SR, "cuda")
     real = [load_symbols(c)[0] for c in clips.values()]
-    pairs = {"fused_z": (fz.fused_pipeline_z, fz.fused_pipeline_z_reference),
-             "fused_frontend": (fz.fused_frontend, fz.fused_frontend_reference)}
-    rec = {name: {} for name in pairs}
+    rec = {name: [] for name in sc.KERNELS}
     zero_counts()
-    for S in (1, 64, 256):
-        args = random_symbols(S, seed=S, real=real)
-        for name, (kernel, plain) in pairs.items():
-            out = kernel(*args, tables)
-            want = plain(*args, tables)
+    for name in sc.KERNELS:
+        t0 = time.perf_counter()
+        sc.check_kernel(name, tables, log=log)
+        log(f"check {name}: passed in {time.perf_counter() - t0:.2f} s; "
+            f"persistent grid {torch.cuda.get_device_properties(0).multi_processor_count}"
+            f" SMs x {sc.blocks_per_sm(name)} blocks (int32 symbols)")
+    for S, types, path in KERNEL_CASES:
+        args = sc.random_symbols(S, WIN, seed=S, real=real,
+                                 sym_types=tuple(getattr(torch, t) for t in types))
+        at = f"S={S} win={WIN} is_/exp {types[0]}/{types[1]} ({path})"
+        for name, (kernel, plain) in sc.KERNELS.items():
+            err, scale, worst = sc.compare(name, kernel(*args, tables),
+                                           plain(*args, tables), at)
             torch.cuda.synchronize()
-            if not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"{name}: output not finite")
-            err = float((out - want).abs().max())
-            scale = float(want.abs().max())
-            if scale == 0:
-                raise AssertionError(f"{name}: all-zero output at S={S}")
-            log(f"kernel {name} S={S} win={WIN}: max |d| {err:.6g}, max |out| "
-                f"{scale:.6g}, rel {err / scale:.3g} (tol {Z_REL_TOL:g})")
-            if not err <= Z_REL_TOL * scale:
-                raise AssertionError(f"{name} disagrees with plain at S={S}")
+            log(f"kernel {name} {at}: max |d| {err:.6g}, max |out| {scale:.6g}; "
+                f"worst subband at {worst:.3g} of its tol (REL_TOL {sc.REL_TOL:g} "
+                f"of the subband's max |out|)")
+            b = sc.bound(name, args)
             ms = cuda_ms(lambda: kernel(*args, tables))
+            cold = (cuda_ms_cold(lambda *x: kernel(*x, tables), args, b["bytes"])
+                    if S >= 64 else None)
             plain_ms = cuda_ms(lambda: plain(*args, tables))
-            log(f"kernel {name} S={S} win={WIN}: {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms (median of 7 x 10 calls; {card})")
-            rec[name][S] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            share = b["bound_us"] / (1e3 * ms)
+            share_cold = b["bound_us"] / (1e3 * cold) if cold else None
+            cold_s = (f"cold L2 {cold:.4f} ms ({100 * share_cold:.1f}% of the "
+                      "bound)" if cold else "cold L2 not timed (launch-bound)")
+            log(f"kernel {name} {at}: {ms:.4f} ms warm L2 ({100 * share:.1f}% "
+                f"of the bound), {cold_s}, plain {plain_ms:.4f} ms (medians of "
+                f"7 x 10 calls); {b['bytes']} bytes, {b['flops']} float32 "
+                f"operations, bound {b['bound_us']:.2f} us by {b['bound_by']} "
+                f"({card})")
+            rec[name].append({
+                "S": S, "types": "/".join(types), "used_by": path,
+                "max_abs_err": err, "worst_over_tol": worst, "ms": ms,
+                "ms_cold_l2": cold, "plain_ms": plain_ms,
+                "bound_ms": b["bound_us"] / 1e3, "bound_by": b["bound_by"],
+                "library_ms": None, "bytes": b["bytes"],
+                "bound_us": b["bound_us"],
+                "bound_share": share_cold if cold else share,
+                "bound_share_warm_l2": share})
     return rec, read_counts()
+
+
+# csrc/fused_z.cu's measurement variants: (name, macros)
+VARIANTS = (("as built", ()),
+            ("3 stages", ("MP3TPU_FZ_STAGES=3",)),
+            ("4 stages", ("MP3TPU_FZ_STAGES=4",)),
+            ("3 blocks per SM", ("MP3TPU_FZ_BLOCKS_PER_SM=3",)),
+            ("no C5 arithmetic", ("MP3TPU_FZ_NO_C5=1",)))
+
+
+def variants_main(card: str) -> None:
+    """Each measurement variant of csrc/fused_z.cu (all built at once),
+    timed against the kernel as built at S=64 and S=256 (int32 symbols),
+    warm and with a cold L2; every variant but the one without C5 must give
+    the bits of the kernel as built."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mp3tpu_torch.kernels import fused_z as fz
+    from mp3tpu_torch.kernels import selfcheck as sc
+    from mp3tpu_torch.kernels.tables import build_tables
+    with ThreadPoolExecutor(len(VARIANTS)) as ex:
+        list(ex.map(fz._library, [d for _, d in VARIANTS]))
+    tables = build_tables(SR, "cuda")
+    for S in (64, 256):
+        args = sc.random_symbols(S, WIN, seed=S)
+        for name in sc.KERNELS:
+            ref = sc.variant(name)(*args, tables)
+            nbytes = sc.bound(name, args)["bytes"]
+            for what, defines in VARIANTS:
+                if name == "fused_frontend" and "MP3TPU_FZ_NO_C5=1" in defines:
+                    continue  # C1-C4 has no C5
+                fn = sc.variant(name, defines)
+                same = torch.equal(fn(*args, tables), ref)
+                if not same and "MP3TPU_FZ_NO_C5=1" not in defines:
+                    raise AssertionError(f"variant {what} of {name} changes the bits")
+                ms = cuda_ms(lambda: fn(*args, tables))
+                cold = cuda_ms_cold(lambda *x: fn(*x, tables), args, nbytes)
+                log(f"variant {name} S={S} {what}: {sc.blocks_per_sm(name, defines)} "
+                    f"blocks per SM, {ms:.4f} ms warm L2, {cold:.4f} ms cold L2, "
+                    f"bits as built: {same} ({card})")
 
 
 def phase_decode_batch(clips: dict):
     """decode_batch of 64 streams: (the kernels' launches in it, the batch,
     its results)."""
     import mp3tpu_torch
-    from mp3tpu.oracle.decoder import decode_symbols
     from mp3tpu_torch.dsp.gapless import gapless_bounds
+    from mp3tpu_torch.oracle.decoder import decode_symbols
     from mp3tpu_torch.pipeline import load_symbols
     names = list(clips)
     batch = [clips[names[i % len(names)]] for i in range(64)]
@@ -374,21 +454,13 @@ def phase_config3(clips: dict, card: str) -> None:
     compare_i16(got, ref[0, :n2].numpy(), "config3 stream 0 vs CPU, first 2 s")
 
 
-def make_track() -> bytes:
-    """A 60 s stereo 44.1 kHz track by mp3tpu's own encoder: 20 s each of
-    the sweep, the transients and the tonal stereo signal."""
-    import fixtures
-    from mp3tpu.encoder import encode_pcm
-    third = TRACK_S / 3
-    sig = np.concatenate([fixtures.tone_sweep(third, SR),
-                          fixtures.transients(third, SR),
-                          fixtures.tonal_stereo(third, SR)])
-    t0 = time.perf_counter()
-    data = encode_pcm(sig, SR, bitrate=128, noise_shaping=False,
-                      device_transform=False, device_loops=False,
-                      short_blocks=True, joint_stereo=True)
-    log(f"track: {TRACK_S:g} s stereo, {len(data)} bytes, encoded in "
-        f"{time.perf_counter() - t0:.2f} s (host)")
+def read_track() -> bytes:
+    """The 60 s stereo 44.1 kHz track of tests/torch_clips: 20 s each of the
+    sweep, the transients and the tonal stereo signal, by mp3tpu's
+    encoder."""
+    with open(os.path.join(CLIPS, "track60.mp3"), "rb") as f:
+        data = f.read()
+    log(f"track: {TRACK_S:g} s stereo, {len(data)} bytes")
     return data
 
 
@@ -510,7 +582,7 @@ def phase_scheduler(batch: list, fast: list, card: str) -> dict:
     path's results, and decode_batch with use_native=False through the
     scheduler. Returns the kernels' launches in the 64-stream run."""
     import mp3tpu_torch
-    from mp3tpu.config import resolve, set_active
+    from mp3tpu_torch.config import resolve, set_active
     from mp3tpu_torch.player import scheduler
     audio_s = sum(len(pcm) for pcm, _ in fast) / SR
     scheduler.decode_batch_streams(batch[:2], device="cuda")  # warm-up
@@ -608,10 +680,10 @@ def profile_main(card: str) -> None:
     import mp3tpu_torch
     from mp3tpu_torch.player import scheduler
     eq = [6.0, 3.0, 0.0, -3.0, -6.0, 0.0, 3.0, 0.0, -2.0, 1.0]
-    clips = make_clips()
+    clips = read_clips()
     names = list(clips)
     batch = [clips[names[i % len(names)]] for i in range(64)]
-    track = make_track()
+    track = read_track()
     for what, kw in (("player play 60 s", {}),
                      ("player play 60 s EQ", {"eq_gains_db": eq}),
                      ("player speed 0.75", {"speed": 0.75})):
@@ -629,10 +701,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    # the port never uses JAX, but mp3tpu/__init__.py imports it where it is
-    # installed (for a compilation cache): keep it out of this process
+    # the port imports neither JAX nor the JAX package: make sure of it
     sys.modules["jax"] = None
-    sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]
+    sys.modules["mp3tpu"] = None
+    sys.path.insert(0, os.path.join(ROOT, "src"))
     import mp3tpu_torch  # noqa: F401  (fails outside the repository)
 
     card = timed("environment", phase_environment)
@@ -640,20 +712,25 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_main(card)
         return 0
-    clips = timed("clips", make_clips)
+    if sys.argv[1:] == ["--variants"]:
+        variants_main(card)
+        return 0
+    clips = timed("clips", read_clips)
     krec, check_calls = timed("kernel", phase_kernel, clips, card)
     paths = {"decode_batch": None, "player": None, "scheduler": None}
     paths["decode_batch"], batch, fast = timed("decode_batch",
                                                phase_decode_batch, clips)
     timed("config3", phase_config3, clips, card)
-    track = timed("track", make_track)
+    track = timed("track", read_track)
     paths["player"] = timed("player", phase_player, track, card)
     paths["scheduler"] = timed("scheduler", phase_scheduler, batch, fast, card)
 
     # each kernel's launches in the three paths' runs, each counted from 0;
     # the kernel phase's calls apart. No path calls fused_frontend (nor its
     # TPU kernel, in the JAX package), so its path launches read 0.
-    # Times and errors at decode_batch's shape: 64 streams x 32 granules.
+    # Times, errors and bounds at the shape and types of the decode_batch
+    # run counted above (64 streams x 32 granules, widened planes: int32
+    # spectrum, int16 exponents); every case of the kernel phase in "cases".
     replaces = {"fused_z": "src/mp3tpu/kernels/pallas_fused.py:237",
                 "fused_frontend": "src/mp3tpu/kernels/pallas_fused.py:72"}
     kernels = []
@@ -665,7 +742,12 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/mp3tpu_torch/csrc/fused_z.cu", "replaces": rep,
             "launches": sum(by_path.values()), "paths": by_path,
-            "check_calls": check_calls[name], **krec[name][64]})
+            "check_calls": check_calls[name],
+            **next(c for c in krec[name]
+                   if c["S"] == 64 and c["types"] == "int32/int16"),
+            "cases": [{k: c[k] for k in ("S", "types", "used_by", "ms",
+                                         "ms_cold_l2", "bound_us", "bound_share")}
+                      for c in krec[name]]})
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 PyTorch, with its TPU kernels rewritten in CUDA C++ for NVIDIA Hopper
 (sm_90a).
 
-The host half (container parse, C++ unpack, tables, fault counters) is
-imported from mp3tpu's JAX-free modules; this package imports torch and never
-jax.
+The host half (container parse, C++ unpack, tables, fault counters, config)
+is the port's own copy of mp3tpu's: this package imports torch, never jax
+and nothing of mp3tpu.
 """
 from .api import decode, decode_batch, levels, loudness, play, segment  # noqa: F401

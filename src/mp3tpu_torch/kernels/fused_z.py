@@ -4,9 +4,12 @@ mp3tpu.kernels.pallas_fused.fused_pipeline_z, the TPU kernel _kernel_z), and
 its first four stages alone (counterpart of fused_frontend, the TPU kernel
 _kernel).
 
-fused_pipeline_z and fused_frontend run the two instantiations of the CUDA
-kernel of csrc/fused_z.cu on CUDA tensors, and their plain PyTorch versions,
+fused_pipeline_z and fused_frontend run the C1-C5 and the C1-C4
+instantiations of the CUDA kernel of csrc/fused_z.cu on CUDA tensors, with
+the symbols as they are (a pair of _SYMBOL_TYPES, int8 or int32 block
+type), and their plain PyTorch versions,
 fused_pipeline_z_reference and fused_frontend_reference, on CPU tensors.
+kernels/selfcheck.py holds each kernel to its plain version on the card.
 """
 from __future__ import annotations
 
@@ -19,6 +22,11 @@ from . import build
 from .tables import DeviceTables
 
 _INT_TYPES = (torch.int16, torch.int32)
+# (spectrum, exponents) types the kernel reads: int16 symbols (player,
+# scheduler, single-stream decode), the plane decode's int32, and int32
+# spectrum with int16 exponents where its byte exponents overflow
+_SYMBOL_TYPES = ((torch.int16, torch.int16), (torch.int32, torch.int32),
+                 (torch.int32, torch.int16))
 
 
 def _pow43(a: torch.Tensor) -> torch.Tensor:
@@ -87,18 +95,20 @@ def fused_pipeline_z_reference(is_, exp, block_type, mixed, smode,
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build.build("fused_z.cu")))
-    lib.mp3tpu_fused_z.restype = ctypes.c_int
-    lib.mp3tpu_fused_z.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-        + [ctypes.c_int64, ctypes.c_void_p])
-    lib.mp3tpu_fused_frontend.restype = ctypes.c_int
-    lib.mp3tpu_fused_frontend.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int64, ctypes.c_void_p])
+def _library(defines: tuple = ()) -> ctypes.CDLL:
+    """The kernels' library; `defines` builds a measurement variant of it
+    (csrc/fused_z.cu's MP3TPU_FZ_* macros)."""
+    lib = ctypes.CDLL(str(build.build("fused_z.cu", defines)))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    head = [P, I, P, I, P, I, P, P, P, P, P, P, I, P, P]
+    lib.mp3tpu_fused_z.restype = I
+    lib.mp3tpu_fused_z.argtypes = head + [P, P, ctypes.c_int64, P]
+    lib.mp3tpu_fused_frontend.restype = I
+    lib.mp3tpu_fused_frontend.argtypes = head + [P, ctypes.c_int64, P]
+    lib.mp3tpu_fused_blocks_per_sm.restype = I
+    lib.mp3tpu_fused_blocks_per_sm.argtypes = [I, ctypes.POINTER(I)]
     lib.mp3tpu_cuda_error_string.restype = ctypes.c_char_p
-    lib.mp3tpu_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mp3tpu_cuda_error_string.argtypes = [I]
     return lib
 
 
@@ -117,29 +127,45 @@ def _check(is_, exp, block_type, mixed, smode, tables):
         if t.device != tables.band_map.device:
             raise ValueError(f"{name} is on {t.device}, the tables on "
                              f"{tables.band_map.device}")
+    if (is_.dtype, exp.dtype) not in _SYMBOL_TYPES:
+        raise TypeError(f"is_/exp: dtypes {is_.dtype}/{exp.dtype}, expected "
+                        f"a pair of {_SYMBOL_TYPES}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned, as the kernel's bulk copies need:
+    the tensors of the decode paths already are, and pass as they are."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(entry: str, out_tail: tuple, is_, exp, block_type, mixed, smode,
-            tables: DeviceTables) -> torch.Tensor:
+            tables: DeviceTables, lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """Launch one instantiation of the kernel of csrc/fused_z.cu (`entry`,
-    writing float32 [S, G, 2, *out_tail]) on the current CUDA stream."""
+    writing float32 [S, G, 2, *out_tail]) on the current CUDA stream, from
+    `lib` (default: _library()). The symbols go in with the types they
+    have; nothing is cast first."""
     S, G = is_.shape[:2]
     dev = is_.device
-    ins = [is_.to(torch.int32).contiguous(), exp.to(torch.int32).contiguous(),
-           block_type.to(torch.int32).contiguous(),
-           mixed.contiguous().view(torch.uint8), smode.contiguous()]
-    t = tables
-    consts = [t.band_map, t.reorder_map, t.n_alias, t.palette4]
     out = torch.empty((S, G, 2) + out_tail, dtype=torch.float32, device=dev)
     if S * G == 0:
         return out
-    blocks = [t.imdct_blocks.data_ptr()] if entry == "mp3tpu_fused_z" else []
-    lib = _library()
+    is_, exp, smode = _aligned(is_), _aligned(exp), _aligned(smode)
+    block_type = block_type.contiguous()
+    mixed = mixed.contiguous().view(torch.uint8)
+    t = tables
+    coefs = ([t.imdct_coefs_host.data_ptr()] if entry == "mp3tpu_fused_z"
+             else [])
+    lib = lib or _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, entry)(
-            *(a.data_ptr() for a in ins + consts), t.palette4.shape[0],
-            t.alias_cs.data_ptr(), t.alias_ca.data_ptr(), *blocks,
+            is_.data_ptr(), is_.element_size(), exp.data_ptr(),
+            exp.element_size(), block_type.data_ptr(),
+            block_type.element_size(), mixed.data_ptr(), smode.data_ptr(),
+            t.band_map.data_ptr(), t.reorder_map.data_ptr(),
+            t.n_alias.data_ptr(), t.palette4.data_ptr(), t.palette4.shape[0],
+            t.alias_cs.data_ptr(), t.alias_ca.data_ptr(), *coefs,
             out.data_ptr(), S * G, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: "
@@ -166,7 +192,8 @@ def fused_pipeline_z(is_, exp, block_type, mixed, smode,
                                           tables)
     z = _launch("mp3tpu_fused_z", (32, 36), is_, exp, block_type, mixed,
                 smode, tables)
-    fused_pipeline_z.launches += 1
+    if z.numel():  # zero pairs launch nothing
+        fused_pipeline_z.launches += 1
     return z
 
 
@@ -187,7 +214,8 @@ def fused_frontend(is_, exp, block_type, mixed, smode,
                                         tables)
     nat = _launch("mp3tpu_fused_frontend", (576,), is_, exp, block_type,
                   mixed, smode, tables)
-    fused_frontend.launches += 1
+    if nat.numel():  # zero pairs launch nothing
+        fused_frontend.launches += 1
     return nat
 
 

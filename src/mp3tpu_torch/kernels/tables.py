@@ -4,8 +4,9 @@ nn.Module (counterpart of mp3tpu.kernels.pipeline.DeviceTables).
 The eight fields of the JAX package's DeviceTables keep their names and
 float32 values. Beside them are the index forms that the CUDA kernel and the
 plain C1-C5 read where the JAX package multiplies by one-hot matrices: band
-and reorder maps per flavor, the alias butterflies, and the four windowed
-IMDCT block matrices.
+and reorder maps per flavor and the alias butterflies; and, on the host, the
+IMDCT coefficients the CUDA kernel takes as a launch parameter
+(imdct_coefs).
 """
 from __future__ import annotations
 
@@ -30,7 +31,6 @@ FIELDS = (
     ("n_alias", torch.int32),         # [3] alias boundaries: 31, 0, 1
     ("alias_cs", torch.float32),      # [8] butterfly coefficients
     ("alias_ca", torch.float32),      # [8]
-    ("imdct_blocks", torch.float32),  # [4, 18, 36] windowed IMDCT by block type
 )
 
 
@@ -42,6 +42,9 @@ class DeviceTables(nn.Module):
         for name, dtype in FIELDS:
             self.register_buffer(name, torch.as_tensor(
                 np.array(arrays[name])).to(device=device, dtype=dtype))
+        # the IMDCT coefficients of the CUDA kernel, on the host: it takes
+        # them as a launch parameter
+        self.imdct_coefs_host = imdct_coefs(self)
         # derived forms for the plain C1-C5 and the synthesis matmul
         partner, self_c, cross_c = _alias_gather(
             np.asarray(arrays["n_alias"]), np.asarray(arrays["alias_cs"]),
@@ -56,6 +59,18 @@ class DeviceTables(nn.Module):
         # matmul over unfold(time, 16) windows (see pipeline._backend)
         self.register_buffer("synth_w", self.synth_fir.flip(0).permute(1, 0, 2)
                              .reshape(512, 32).contiguous())
+
+
+def imdct_coefs(t: DeviceTables) -> torch.Tensor:
+    """The 540 float32 coefficients of C5 in csrc/fused_z.cu (ImdctCoefs),
+    taken from the plain version's own tables: the 18 distinct columns of
+    imdct_long (0-8 and 18-26; the IMDCT-36's symmetry gives the other
+    18), one short window's block of imdct_short (lines 0-5 -> outputs
+    6-17), and the four long windows."""
+    cols = list(range(9)) + list(range(18, 27))
+    return torch.cat([t.imdct_long[:, cols].reshape(-1),
+                      t.imdct_short[:6, 6:18].reshape(-1),
+                      t.windows.reshape(-1)]).cpu().contiguous()
 
 
 def _alias_gather(n_alias, cs, ca):
@@ -79,10 +94,10 @@ def _alias_gather(n_alias, cs, ca):
 def _numpy_tables(sample_rate: int) -> dict:
     """float64/int numpy sources of every field, built as the JAX package's
     build_tables builds them (read-only: the cache hands them to every call)."""
-    from mp3tpu.oracle.decoder import alias_reduce
-    from mp3tpu.tables import filterbank as fb
-    from mp3tpu.tables import maps as tmaps
-    from mp3tpu.tables.stereo_palette import PALETTE
+    from ..oracle.decoder import alias_reduce
+    from ..tables import filterbank as fb
+    from ..tables import maps as tmaps
+    from ..tables.stereo_palette import PALETTE
     bm, rm = tmaps.get_maps(sample_rate)
 
     band_oh = np.zeros((3, 64, 576))
@@ -108,7 +123,7 @@ def _numpy_tables(sample_rate: int) -> dict:
                           np.ones(36), fb.imdct_window(3)]),
         palette4=PALETTE.reshape(-1, 4), synth_fir=fb.synthesis_fir(),
         inv_mask=inv, band_map=bm, reorder_map=rm, n_alias=n_alias,
-        alias_cs=fb.ALIAS_CS, alias_ca=fb.ALIAS_CA, imdct_blocks=mats)
+        alias_cs=fb.ALIAS_CS, alias_ca=fb.ALIAS_CA)
     for a in out.values():
         a.setflags(write=False)
     return out

@@ -3,11 +3,11 @@
 envelope scans behind segment/loudness/levels, and the streaming source the
 player reads).
 
-The host half (container parse, C++ unpack, fault counters) is the JAX
-package's own, imported from its JAX-free modules. Every device function
-takes `device`; the default is "cuda". Batches the packed-plane fast path
-cannot take go to player.scheduler.decode_batch_streams, as in the JAX
-package.
+The host half (container parse, C++ unpack, fault counters, config) is the
+port's own copy of the JAX package's (container/, bitstream/, metrics.py,
+config.py). Every device function takes `device`; the default is "cuda".
+Batches the packed-plane fast path cannot take go to
+player.scheduler.decode_batch_streams, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,11 +17,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mp3tpu.bitstream.unpack import SymbolTensors, unpack_fast
-from mp3tpu.container import frames as fr
-from mp3tpu.container.id3 import parse_id3v2
-from mp3tpu.container.xing import is_metadata_frame, parse_stream_info
-
+from .bitstream.unpack import SymbolTensors, unpack_fast
+from .container import frames as fr
+from .container.id3 import parse_id3v2
+from .container.xing import is_metadata_frame, parse_stream_info
 from .dsp.gapless import gapless_bounds
 from .kernels import pipeline as kp
 
@@ -41,15 +40,15 @@ def _read(path_or_bytes) -> bytes:
 
 def _native_lib():
     """The C++ unpacker's library, or None (MP3TPU_NO_NATIVE is set, or
-    `make -C src/mp3tpu/native` failed: run it to see why)."""
-    from mp3tpu.bitstream import native as nat
+    the host has no g++); raises when its build fails."""
+    from .bitstream import native as nat
     return nat._load()
 
 
 def load_symbols(data: bytes):
     """Container parse + unpack: (SymbolTensors, StreamInfo, FrameIndex),
     without ID3v2 regions and a leading Xing/Info/VBRI metadata frame."""
-    from mp3tpu.metrics import record_resyncs, record_symbol_errors
+    from .metrics import record_resyncs, record_symbol_errors
     id3 = parse_id3v2(data)
     buf = np.frombuffer(data, np.uint8)
     index = fr.scan_frames(buf, start=id3.size)
@@ -73,7 +72,7 @@ def load_source(data: bytes):
     """Container parse + streaming symbol source: (SymbolSource,
     StreamInfo, FrameIndex). No audio is unpacked up front: the player and
     the scheduler pull granule windows on demand."""
-    from mp3tpu.bitstream.source import SymbolSource
+    from .bitstream.source import SymbolSource
     id3 = parse_id3v2(data)
     body = data[id3.size:] if id3.size else data
     index = fr.scan_frames(np.frombuffer(body, np.uint8))
@@ -172,7 +171,7 @@ def segment_file(path_or_bytes, gapless: bool | None = None, device="cuda",
     gapless-trimmed timeline when the LAME tag is present. The envelope hop
     is fixed at one granule (ENV_HOP); a hop_s that rounds to another hop
     is rejected."""
-    from mp3tpu.config import get_active
+    from .config import get_active
     from .dsp.segment import segments_from_envelope
     if gapless is None:
         gapless = get_active().decode.gapless
@@ -233,8 +232,8 @@ def decode_file(path_or_bytes, output: str | None = None,
                 gapless: bool | None = None, device="cuda"):
     """decode(path) -> (pcm, sample_rate). output "int16" or "float32";
     gapless trims the encoder delay and padding of a LAME tag. Unset
-    arguments come from mp3tpu's active Config."""
-    from mp3tpu.config import get_active
+    arguments come from the port's active Config (config.py)."""
+    from .config import get_active
     cfg = get_active().decode
     output = cfg.output if output is None else output
     gapless = cfg.gapless if gapless is None else gapless
@@ -273,7 +272,7 @@ def _decode_files_fast(datas, gapless: bool, device):
     to the scheduler. Returns None when the batch needs the scheduler
     whole: the C++ unpacker off or missing, a stream it cannot take, or a
     chunk no packed plane holds."""
-    from mp3tpu.config import get_active
+    from .config import get_active
     cfg = get_active().decode
     if not cfg.use_native or _native_lib() is None:
         return None
@@ -306,7 +305,7 @@ def _decode_files_fast(datas, gapless: bool, device):
                 return None
     # fault books commit only once every chunk has decoded: a batch that
     # goes to the scheduler whole keeps the scheduler's books alone
-    from mp3tpu.metrics import record_resyncs, record_symbol_errors
+    from .metrics import record_resyncs, record_symbol_errors
     for errs, ngr, nrs in pending_faults:
         record_symbol_errors(errs, ngr)
         record_resyncs(nrs)
@@ -371,7 +370,7 @@ def _unpack_chunk(bodies, Gs, S, win, plane_bits, exp_bytes):
     """One try of unpack_planes at one plane width: (planes, error flags),
     or None if a granule-channel overflows the planes' sideband or
     exponent range."""
-    from mp3tpu.bitstream.native import unpack_native_into12
+    from .bitstream.native import unpack_native_into12
     n_win = -(-max(Gs) // win)
     shp = {4: 288, 8: 576, 12: 864}[plane_bits]
     dt = {4: np.uint8, 8: np.int8, 12: np.uint8}[plane_bits]

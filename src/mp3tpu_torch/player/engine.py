@@ -20,18 +20,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mp3tpu.bitstream.unpack import SymbolTensors
-from mp3tpu.container import frames as fr
-from mp3tpu.container.id3 import Id3Info, parse_id3v1, parse_id3v2
-from mp3tpu.container.seek import SeekTable
-from mp3tpu.container.xing import StreamInfo
-from mp3tpu.metrics import Metrics, record_resyncs, record_symbol_errors
-
+from ..bitstream.unpack import SymbolTensors
+from ..container import frames as fr
+from ..container.id3 import Id3Info, parse_id3v1, parse_id3v2
+from ..container.seek import SeekTable
+from ..container.xing import StreamInfo
 from ..dsp.eq import fir_valid
 from ..dsp.gain import gain_ramp
 from ..dsp.gapless import gapless_bounds
 from ..kernels import pipeline as kp
 from ..kernels.tables import state_from_numpy
+from ..metrics import Metrics, record_resyncs, record_symbol_errors
 from ..transfer import HostCopy
 from .sink import CollectSink, Sink, take_underruns
 
@@ -121,7 +120,7 @@ class Player:
                  gain_db: float | None = None, eq_gains_db=None,
                  apply_gapless: bool = True, speed: float | None = None,
                  device="cuda"):
-        from mp3tpu.config import get_active
+        from ..config import get_active
         cfg = get_active()
         if cfg.decode.window_granules != WINDOW_GRANULES:
             # the shared 32-granule partition is the bit-identity contract
@@ -377,7 +376,7 @@ class Player:
         self.metrics.samples_out += len(i16)
         u = take_underruns(self.sink)
         if u:  # sink-level starvation into the books
-            from mp3tpu.metrics import record_underruns
+            from ..metrics import record_underruns
             record_underruns(u, self.metrics)
 
     def _emit_multi_dev(self, prev, cur, off: int, m: int):

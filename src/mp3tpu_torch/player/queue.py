@@ -17,8 +17,7 @@ settings (gain/EQ/speed) are re-applied to each track as it opens.
 """
 from __future__ import annotations
 
-from mp3tpu.metrics import Metrics
-
+from ..metrics import Metrics
 from .engine import Player
 from .sink import CollectSink, Sink
 
@@ -77,7 +76,7 @@ class PlayQueue:
         if self._player is None:
             off = 0.0
             if self._normalize:
-                from mp3tpu.config import get_active
+                from ..config import get_active
                 from ..dsp.loudness import (TARGET_DB,
                                             normalization_gain_db)
                 # offsets are RELATIVE corrections on top of whatever

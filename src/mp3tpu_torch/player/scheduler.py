@@ -23,12 +23,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mp3tpu.bitstream.unpack import SymbolTensors
-from mp3tpu.metrics import Metrics, record_resyncs, record_symbol_errors
-
+from ..bitstream.unpack import SymbolTensors
 from ..dsp.gapless import gapless_bounds
 from ..kernels import pipeline as kp
 from ..kernels.tables import state_from_numpy, state_to_numpy
+from ..metrics import Metrics, record_resyncs, record_symbol_errors
 from ..transfer import HostCopy
 from .sink import CollectSink, Sink, take_underruns
 
@@ -58,8 +57,8 @@ def gapless_bounds_of(data: bytes, n_granules: int) -> tuple[int, int | None]:
     """(start_skip, end_sample) from the stream's LAME tag, or (0, None).
     Scans the whole stream: where load_source's StreamInfo is at hand,
     info_bounds gives the same bounds without a second scan."""
-    from mp3tpu.container import frames as fr
-    from mp3tpu.container.xing import parse_stream_info
+    from ..container import frames as fr
+    from ..container.xing import parse_stream_info
     try:
         idx = fr.scan_frames(np.frombuffer(data, np.uint8))
         info = parse_stream_info(bytes(data), int(idx.offsets[0]),
@@ -74,7 +73,7 @@ class StreamScheduler:
 
     def __init__(self, n_slots: int | None = None, win: int | None = None,
                  sample_rate: int = 44100, device="cuda"):
-        from mp3tpu.config import get_active
+        from ..config import get_active
         cfg = get_active().scheduler
         self.S = cfg.n_slots if n_slots is None else n_slots
         self.win = cfg.window_granules if win is None else win
@@ -220,7 +219,7 @@ class StreamScheduler:
                 emitted += hi - lo
             u = take_underruns(sink)
             if u:
-                from mp3tpu.metrics import record_underruns
+                from ..metrics import record_underruns
                 record_underruns(u, self.metrics)
         self.metrics.samples_out += emitted
         return emitted

@@ -8,8 +8,8 @@ import torch
 
 import mp3tpu
 import mp3tpu_torch
-from mp3tpu.bitstream import native
 from mp3tpu.kernels import pipeline as kp
+from mp3tpu_torch.bitstream import native
 from mp3tpu_torch.kernels import pipeline as tp
 from mp3tpu_torch.pipeline import probe_granules, stream_meta, unpack_planes
 from test_torch_decode import assert_i16_close, clip

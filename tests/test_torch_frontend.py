@@ -1,7 +1,8 @@
 """C1-C4 of the PyTorch port (kernels/fused_z.py: fused_frontend and its
 plain version) held against the JAX package: the XLA path's natural-order
 spectrum `nat`, and the Pallas kernel _kernel in interpret mode. The CUDA
-kernel itself is held against the plain version on the card."""
+kernel itself is held against the plain version on the card (the
+cuda-marked tests: kernels/selfcheck.py's checks)."""
 import functools
 
 import jax.numpy as jnp
@@ -12,6 +13,7 @@ import torch
 from mp3tpu.kernels import pallas_fused as pf
 from mp3tpu.kernels import pipeline as kp
 from mp3tpu_torch.kernels import fused_z as fz
+from mp3tpu_torch.kernels import selfcheck
 from mp3tpu_torch.kernels.tables import build_tables
 from test_torch_fused_z import assert_close, symbols
 
@@ -76,5 +78,16 @@ def test_kernel_matches_plain_on_card(S):
     want = fz.fused_frontend_reference(*args, t)
     torch.cuda.synchronize()
     assert fz.fused_frontend.launches == before + 1
-    assert_close(nat.cpu().numpy(), want.cpu().numpy())
+    selfcheck.compare("fused_frontend", nat, want, f"S={S}")
     assert torch.equal(nat, fz.fused_frontend(*args, t))  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("check", sorted(selfcheck.CHECKS))
+def test_kernel_checks_on_card(check):
+    """Odd pair counts, every input type, bit-identity across launches and
+    batch sizes, zero pairs (kernels/selfcheck.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    selfcheck.CHECKS[check]("fused_frontend", build_tables(44100, "cuda"))
+    torch.cuda.synchronize()

@@ -6,9 +6,9 @@ import pytest
 import torch
 
 import fixtures
-from mp3tpu.bitstream import native
 from mp3tpu.dsp import resample as jrs
 from mp3tpu.kernels import pipeline as kp
+from mp3tpu_torch.bitstream import native
 from mp3tpu_torch.dsp.resample import Resampler
 from mp3tpu_torch.kernels import pipeline as tp
 from mp3tpu_torch.pipeline import (_unpack_chunk, load_symbols, probe_granules,

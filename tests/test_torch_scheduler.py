@@ -2,7 +2,9 @@
 held against the JAX package's on the same streams; and every batch that
 the fast path of mp3tpu_torch.decode_batch cannot take, which now goes to
 the scheduler as in the JAX package, held against mp3tpu.decode_batch with
-the same fault books."""
+the same fault books. Each package keeps its own config and fault books
+(mp3tpu.config/metrics and mp3tpu_torch.config/metrics): a route is set in
+both, and each package's books are read from its own."""
 import contextlib
 import importlib
 
@@ -12,15 +14,17 @@ import pytest
 import fixtures
 import mp3tpu
 import mp3tpu_torch
-from mp3tpu.config import resolve, set_active
-from mp3tpu.container import frames as fr
+from mp3tpu import config as jax_config
 from mp3tpu.player import CollectSink as JaxSink
 from mp3tpu.player import StreamScheduler as JaxScheduler
+from mp3tpu_torch import config as port_config
+from mp3tpu_torch import metrics as port_metrics
 from mp3tpu_torch import pipeline as tpl
+from mp3tpu_torch.container import frames as fr
 from mp3tpu_torch.player import CollectSink, StreamScheduler, decode_batch_streams
 from test_torch_decode import assert_i16_close
 
-metrics_mod = importlib.import_module("mp3tpu.metrics")
+jax_metrics = importlib.import_module("mp3tpu.metrics")
 BOOKS = ("frames_ok", "frames_error", "granules_muted", "resyncs")
 
 
@@ -39,8 +43,9 @@ def streams(mp3):
 
 
 @contextlib.contextmanager
-def global_delta(out: dict):
-    """The growth of the process-wide fault books inside the block."""
+def global_delta(out: dict, metrics_mod=port_metrics):
+    """The growth of one package's process-wide fault books inside the
+    block (the port's by default)."""
     before = dict(metrics_mod.GLOBAL.to_dict())
     yield
     after = metrics_mod.GLOBAL.to_dict()
@@ -185,11 +190,14 @@ def reservoir_cut(mp3):
 
 @contextlib.contextmanager
 def decode_config(**decode):
-    set_active(resolve(decode=decode))
+    """The same decode settings active in both packages."""
+    for cfg in (jax_config, port_config):
+        cfg.set_active(cfg.resolve(decode=decode))
     try:
         yield
     finally:
-        set_active(resolve())
+        for cfg in (jax_config, port_config):
+            cfg.set_active(cfg.resolve())
 
 
 def assert_batch_and_books_match(datas, route=contextlib.nullcontext):
@@ -197,7 +205,7 @@ def assert_batch_and_books_match(datas, route=contextlib.nullcontext):
     both under `route`: each stream within 1 LSB and 98% exact, the same
     global fault books."""
     d_jax, d_port = {}, {}
-    with route(), global_delta(d_jax):
+    with route(), global_delta(d_jax, jax_metrics):
         want = mp3tpu.decode_batch(datas, gapless=False)
     with route(), global_delta(d_port):
         got = mp3tpu_torch.decode_batch(datas, gapless=False, device="cpu")

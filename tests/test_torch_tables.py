@@ -48,7 +48,13 @@ def test_index_forms_compose_to_ra(sr):
         ra[f, rm[f][part[f][nz]], j[nz]] += cross_c[f][nz]
     assert np.array_equal(ra, np.asarray(ref.ra))
     assert t.n_alias.tolist() == [31, 0, 1]
-    assert np.array_equal(t.imdct_blocks[2].numpy(), t.imdct_short.numpy())
+    # the kernel's IMDCT coefficients are the plain tables' own values
+    coefs = t.imdct_coefs_host.numpy()
+    assert np.array_equal(coefs[:324].reshape(18, 18),
+                          t.imdct_long.numpy()[:, np.r_[0:9, 18:27]])
+    assert np.array_equal(coefs[324:396].reshape(6, 12),
+                          t.imdct_short.numpy()[:6, 6:18])
+    assert np.array_equal(coefs[396:].reshape(4, 36), t.windows.numpy())
 
 
 def test_tables_round_trip():
