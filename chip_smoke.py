@@ -14,29 +14,48 @@ failure raises and the script exits non-zero:
      type, bit-identity across launches and batch sizes, zero pairs), then
      against their plain versions at the shapes and types each path hands
      them (KERNEL_CASES: the player's S=1, decode_batch's and the
-     scheduler's S=64, config 3's S=256, windows of 32 granules), with the
-     times (warm, and with a cold L2 at S >= 64), the bytes moved, the least
-     time the card could take for them and the share of it reached;
+     scheduler's S=64, config 3's S=256, windows of 32 granules; the
+     chunked single-file decode's 36 and 18 rows of 130 granules), with the
+     times (warm, and with a cold L2 from 2,048 pairs up), the bytes moved,
+     the least time the card could take for them and the share of it
+     reached;
   4. decode_batch: 64 streams of the three 10 s clips of tests/torch_clips
      (made by mp3tpu's own encoder and committed), through
-     mp3tpu_torch.decode_batch: lengths, kernel launches, the float64
-     oracle, a bit-identical rerun, and mp3tpu_torch.decode;
-  5. config 3: 256 streams x 10 s decoded and resampled to 48 kHz, timed by
+     mp3tpu_torch.decode_batch: lengths, kernel launches (one per live
+     window: 24, no power-of-two pad), the window loop timed with and
+     without the pad, the float64 oracle, a bit-identical rerun, and
+     mp3tpu_torch.decode;
+  5. device_batch: the same 64 streams through decode_batch(...,
+     output="device"): one CUDA tensor per chunk, .numpy() bit-identical to
+     output="pcm", .levels() and .segments() against levels() and
+     segment() of each clip, levels_batch and segment_batch timed beside 64
+     single levels() calls, the bytes they bring to the host, the peak
+     device memory; once more at 256 streams (four chunks); and
+     decode.d2h_segments 1 against 4, bit-identical, several times;
+  6. config 3: 256 streams x 10 s decoded and resampled to 48 kHz, timed by
      layer, stream 0 held against the same code on the CPU;
-  6. player: the 60 s stereo track of tests/torch_clips through
+  7. player: the 60 s stereo track of tests/torch_clips through
      mp3tpu_torch.play: play == decode,
      seek into a later group == the slice, loop, snapshot/restore, the EQ
      against its CPU run, speed 0.75; time to first audio and realtime
      factors;
-  7. scheduler: decode_batch_streams of the 64 streams at 64 slots against
+  8. chunked: the 60 s track through decode_symbols_chunked (rows of 128 + 2
+     granules, int16 out) against decode() (at most 1 LSB, CHUNKED_EXACT
+     exact) and both against the float64 oracle; its wall and launches
+     with decode.d2h_segments_single 1 and 2, beside decode_symbols_device
+     and decode() of the same track (medians of 5);
+  9. scheduler: decode_batch_streams of the 64 streams at 64 slots against
      decode_batch, and decode_batch with decode.use_native=False, which
-     goes through the scheduler.
+     goes through the scheduler;
+ 10. cli: mp3tpu_torch.cli.main in this process, on the card by default:
+     info, decode (the WAV equals decode()), loudness, segments, split,
+     play --loop to a WAV; split -f mp3 must raise.
 The kernels' JSON record gives each kernel's launches in the runs of
-decode_batch, the full play and the scheduler, each counted from 0 just
-before the run, and apart from them the calls of the kernel phase. The line
-before the last is the card's; the last line is {"ok": true, "device":
-{...}}. Imports nothing of JAX and nothing of mp3tpu (the JAX package);
-needs no LAME.
+decode_batch, the device-resident batch, the full play, the chunked decode
+and the scheduler, each counted from 0 just before the run, and apart from
+them the calls of the kernel phase. The line before the last is the card's;
+the last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
+nothing of mp3tpu (the JAX package); needs no LAME.
 
     python3 chip_smoke.py --profile
 
@@ -187,14 +206,17 @@ def read_clips() -> dict:
     return clips
 
 
-# the kernel phase's shapes: (S windows of WIN granules, spectrum and
-# exponent types, the path that hands the kernel these)
+# the kernel phase's shapes: (S rows of G granules, spectrum and exponent
+# types, the path that hands the kernel these)
+CHUNK_G = 128 + 2   # decode_symbols_chunked's rows: 128 granules and a halo
 KERNEL_CASES = (
-    (1, ("int16", "int16"), "player"),
-    (64, ("int32", "int32"), "decode_batch, 4-bit arenas"),
-    (64, ("int32", "int16"), "decode_batch, widened planes"),
-    (64, ("int16", "int16"), "scheduler"),
-    (256, ("int32", "int32"), "config 3"),
+    (1, WIN, ("int16", "int16"), "player"),
+    (64, WIN, ("int32", "int32"), "decode_batch, 4-bit arenas"),
+    (64, WIN, ("int32", "int16"), "decode_batch, widened planes"),
+    (64, WIN, ("int16", "int16"), "scheduler"),
+    (256, WIN, ("int32", "int32"), "config 3"),
+    (36, CHUNK_G, ("int16", "int16"), "chunked single-file decode"),
+    (18, CHUNK_G, ("int16", "int16"), "chunked single-file decode, 2 segments"),
 )
 
 
@@ -242,10 +264,10 @@ def phase_kernel(clips: dict, card: str):
         log(f"check {name}: passed in {time.perf_counter() - t0:.2f} s; "
             f"persistent grid {torch.cuda.get_device_properties(0).multi_processor_count}"
             f" SMs x {sc.blocks_per_sm(name)} blocks (int32 symbols)")
-    for S, types, path in KERNEL_CASES:
-        args = sc.random_symbols(S, WIN, seed=S, real=real,
+    for S, G, types, path in KERNEL_CASES:
+        args = sc.random_symbols(S, G, seed=S, real=real,
                                  sym_types=tuple(getattr(torch, t) for t in types))
-        at = f"S={S} win={WIN} is_/exp {types[0]}/{types[1]} ({path})"
+        at = f"S={S} G={G} is_/exp {types[0]}/{types[1]} ({path})"
         for name, (kernel, plain) in sc.KERNELS.items():
             err, scale, worst = sc.compare(name, kernel(*args, tables),
                                            plain(*args, tables), at)
@@ -256,7 +278,7 @@ def phase_kernel(clips: dict, card: str):
             b = sc.bound(name, args)
             ms = cuda_ms(lambda: kernel(*args, tables))
             cold = (cuda_ms_cold(lambda *x: kernel(*x, tables), args, b["bytes"])
-                    if S >= 64 else None)
+                    if S * G >= 64 * WIN else None)
             plain_ms = cuda_ms(lambda: plain(*args, tables))
             share = b["bound_us"] / (1e3 * ms)
             share_cold = b["bound_us"] / (1e3 * cold) if cold else None
@@ -268,7 +290,7 @@ def phase_kernel(clips: dict, card: str):
                 f"operations, bound {b['bound_us']:.2f} us by {b['bound_by']} "
                 f"({card})")
             rec[name].append({
-                "S": S, "types": "/".join(types), "used_by": path,
+                "S": S, "G": G, "types": "/".join(types), "used_by": path,
                 "max_abs_err": err, "worst_over_tol": worst, "ms": ms,
                 "ms_cold_l2": cold, "plain_ms": plain_ms,
                 "bound_ms": b["bound_us"] / 1e3, "bound_by": b["bound_by"],
@@ -345,6 +367,12 @@ def phase_decode_batch(clips: dict):
         f"(first call, builds included), launches {launches}")
     if launches["fused_z"] <= 0:
         raise AssertionError("decode_batch did not go through the kernel")
+    n_win = -(-max(st.n_granules for st, _ in syms.values()) // WIN)
+    bucket = 1 << (n_win - 1).bit_length()
+    log(f"decode_batch: windows decoded per chunk {launches['fused_z']} "
+        f"(live windows {n_win}; a power-of-two bucket would hold {bucket})")
+    if launches["fused_z"] != n_win:
+        raise AssertionError("decode_batch decoded pad windows")
 
     for i, (pcm, rate) in enumerate(out):
         st, info = syms[names[i % len(names)]]
@@ -388,6 +416,340 @@ def phase_decode_batch(clips: dict):
         pcm, rate = mp3tpu_torch.decode(clips[name], device="cuda")
         compare_i16(pcm, out[k][0], f"decode vs decode_batch {name}")
     return launches, batch, out
+
+
+def window_loop_ms(batch: list, card: str) -> None:
+    """The device phase of decode_batch's chunk of 64 streams: its window
+    loop over the live windows, and over the power-of-two bucket of windows
+    (the rest silent) that the loop decoded before; CUDA events around the
+    whole loop, medians of 7 after a warm-up, in turns."""
+    from mp3tpu_torch.kernels import pipeline as kp
+    from mp3tpu_torch.pipeline import probe_granules, stream_meta, unpack_planes
+    bodies = [stream_meta(d)[0] for d in batch]
+    Gs = [probe_granules(b) for b in bodies]
+    planes, _errs, bits, _exp_bytes = unpack_planes(bodies, Gs, 64, WIN, 4)
+    keys = ("is12", "esc", "exp", "bt", "mx", "smode")
+    dev = {k: torch.from_numpy(planes[k]).cuda() for k in keys}
+    n_win = dev["bt"].shape[0]
+    bucket = 1 << (n_win - 1).bit_length()
+
+    def loop(n):
+        per_win = [[dev[k][w] if w < n_win else torch.zeros_like(dev[k][0])
+                    for w in range(n)] for k in keys]
+        return kp.decode_windows_scan_i16(
+            *per_win, kp.init_state(64, device="cuda"), SR, plane_bits=bits)[0]
+
+    ms = {n_win: [], bucket: []}
+    for n in (bucket, n_win):                  # the allocator's blocks for both
+        loop(n)
+    for n in (n_win, bucket, bucket, n_win):   # in turns, within one call
+        ms[n].append(cuda_ms(lambda: loop(n), reps=7, inner=1))
+    if not torch.equal(loop(n_win), loop(bucket)[:, : n_win * WIN * 576]):
+        raise AssertionError("the live windows' PCM depends on the pad windows")
+    live, pad = (sum(ms[n]) / 2 for n in (n_win, bucket))
+    log(f"decode_batch: window loop of the 64-stream chunk ({bits}-bit planes) "
+        f"{ms[n_win][0]:.3f} / {ms[n_win][1]:.3f} ms for {n_win} live windows, "
+        f"{ms[bucket][0]:.3f} / {ms[bucket][1]:.3f} ms for the bucket of "
+        f"{bucket} (live, bucket, bucket, live; {live / pad:.3f} of it); the "
+        f"live windows' PCM bit-identical ({card})")
+
+
+def timed_s(fn):
+    """(fn(), its wall in seconds, the card's queue drained)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_device_batch(clips: dict, batch: list, fast: list, card: str) -> dict:
+    """decode_batch(..., output="device") of the 64 streams, and what rides
+    the handle. Returns the kernels' launches in the run that makes it."""
+    import mp3tpu_torch
+    from mp3tpu_torch import pipeline as pl
+    from mp3tpu_torch.config import resolve, set_active
+    names = list(clips)
+    audio_s = sum(len(pcm) for pcm, _ in fast) / SR
+    mib = 1 << 20
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    handle, wall = timed_s(lambda: mp3tpu_torch.decode_batch(
+        batch, device="cuda", output="device"))
+    launches = read_counts()
+    peak_decode = torch.cuda.max_memory_allocated()
+    if launches["fused_z"] <= 0:
+        raise AssertionError('output="device" did not go through the kernel')
+    if not isinstance(handle, mp3tpu_torch.DecodedBatch) or len(handle) != 64:
+        raise AssertionError("no DecodedBatch of 64 streams")
+    chunks = {id(handle.device_pcm(i)[0]) for i in range(64)}
+    chunk = handle.device_pcm(0)[0]
+    if len(chunks) != 1 or not chunk.is_cuda or chunk.dtype != torch.int16:
+        raise AssertionError("the 64 streams do not share one CUDA tensor")
+    log(f"device_batch: 64 streams x {CLIP_S:g} s to the device in {wall:.4f} s "
+        f"({audio_s / wall:.1f}x realtime), one int16 chunk "
+        f"{tuple(chunk.shape)} on {chunk.device}, launches {launches}, peak "
+        f"device memory {peak_decode / mib:.1f} MiB ({card})")
+
+    got, wall = timed_s(handle.numpy)
+    for i, ((p, r), (q, rq)) in enumerate(zip(got, fast)):
+        if r != rq or not np.array_equal(p, q):
+            raise AssertionError(f'stream {i}: .numpy() differs from output="pcm"')
+    _, wall2 = timed_s(handle.numpy)
+    log(f"device_batch: .numpy() bit-identical to output=\"pcm\" for all 64; "
+        f"{wall:.4f} s with the chunk's one copy to the host, {wall2:.4f} s "
+        f"again from the kept copy ({card})")
+
+    singles, wall_single = timed_s(
+        lambda: [mp3tpu_torch.levels(d, device="cuda") for d in batch])
+    torch.cuda.reset_peak_memory_stats()
+    lv, wall_lv = timed_s(handle.levels)
+    peak_levels = torch.cuda.max_memory_allocated()
+    for i, ((ld, pk), (ld1, pk1)) in enumerate(zip(lv, singles)):
+        if abs(ld - ld1) >= 0.6 or abs(min(pk, 0.0) - min(pk1, 0.0)) >= 0.3:
+            raise AssertionError(f"stream {i}: levels {ld, pk} vs single {ld1, pk1}")
+    log(f"device_batch: .levels() within 0.6 dB / 0.3 dB of levels() for all "
+        f"64 (clips: {[tuple(round(v, 2) for v in lv[k]) for k in range(3)]}) "
+        f"in {wall_lv:.4f} s; peak device memory with the handle resident "
+        f"{peak_levels / mib:.1f} MiB ({card})")
+    sg, wall_sg = timed_s(handle.segments)
+    for k, name in enumerate(names):
+        ref = mp3tpu_torch.segment(clips[name], device="cuda")
+        if len(sg[k]) != len(ref) or any(
+                abs(a - a1) >= 0.02 or abs(b - b1) >= 0.02
+                for (a, b), (a1, b1) in zip(sg[k], ref)):
+            raise AssertionError(f"segments of {name}: {sg[k]} vs {ref}")
+        if sg[k] != sg[k + 3]:
+            raise AssertionError(f"segments of {name} differ between rows")
+    log(f"device_batch: .segments() equal to segment() in count and within "
+        f"0.02 s ({[len(x) for x in sg[:3]]} segments) in {wall_sg:.4f} s ({card})")
+
+    # what levels_batch brings to the host: the envelope and the peaks
+    crossed = []
+    real = pl._env_batch
+
+    def spy(*a):
+        out = real(*a)
+        crossed.extend(t.numel() * t.element_size() for t in out)
+        return out
+
+    pl._env_batch = spy
+    try:
+        lvb, wall_lvb = timed_s(
+            lambda: mp3tpu_torch.levels_batch(batch, device="cuda"))
+    finally:
+        pl._env_batch = real
+    if lvb != lv:
+        raise AssertionError("levels_batch differs from the handle's levels()")
+    pcm_bytes = chunk.numel() * chunk.element_size()
+    log(f"device_batch: levels_batch equals the handle's levels(); it copies "
+        f"{sum(crossed)} bytes to the host (envelope and peaks, by their "
+        f"shapes) where the PCM is {pcm_bytes} bytes; first call {wall_lvb:.4f} s")
+    entry = {"levels_batch": mp3tpu_torch.levels_batch,
+             "segment_batch": mp3tpu_torch.segment_batch,
+             "decode_batch": mp3tpu_torch.decode_batch}
+    walls = {name: [] for name in entry}
+    for _ in range(5):                          # in turns, within one call
+        for name, fn in entry.items():
+            walls[name].append(timed_s(lambda: fn(batch, device="cuda"))[1])
+    med = {name: float(np.median(w)) for name, w in walls.items()}
+    log("device_batch: 64 streams, medians of 5 in turns: " + ", ".join(
+        f"{name} {med[name]:.4f} s ({audio_s / med[name]:.1f}x realtime; "
+        f"{min(w):.4f}-{max(w):.4f})" for name, w in walls.items())
+        + f"; levels_batch at {med['levels_batch'] / med['decode_batch']:.3f} "
+        f"of decode_batch; 64 single levels() calls {wall_single:.4f} s "
+        f"({audio_s / wall_single:.1f}x) ({card})")
+
+    # four chunks
+    big = batch * 4
+    del handle, got, chunk
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    h4, wall = timed_s(lambda: mp3tpu_torch.decode_batch(
+        big, device="cuda", output="device"))
+    lv4, wall_lv4 = timed_s(h4.levels)
+    peak4 = torch.cuda.max_memory_allocated()
+    held = sum(t.numel() * t.element_size() for t in
+               {id(h4.device_pcm(i)[0]): h4.device_pcm(i)[0]
+                for i in range(256)}.values())
+    if np.abs(np.array(lv4) - np.array(lv * 4)).max() > 1e-3:
+        raise AssertionError("levels of the 256 streams differ from the 64's")
+    for i, (p, _) in enumerate(h4.numpy()):
+        if not np.array_equal(p, fast[i % 64][0]):
+            raise AssertionError(f"stream {i} of 256 differs from output=\"pcm\"")
+    log(f"device_batch: 256 streams in {wall:.4f} s ({4 * audio_s / wall:.1f}x "
+        f"realtime), {held / mib:.1f} MiB of PCM in four chunks on the device, "
+        f".levels() {wall_lv4:.4f} s, peak device memory {peak4 / mib:.1f} MiB; "
+        f".numpy() bit-identical for all 256 ({card})")
+    del h4
+
+    # decode.d2h_segments: the window loop in K segments, each copied to the
+    # host on the copy stream while the next decodes
+    walls = {1: [], 4: []}
+    try:
+        for _ in range(4):
+            for k in (1, 4, 4, 1):
+                set_active(resolve(decode={"d2h_segments": k}))
+                out, wall = timed_s(lambda: mp3tpu_torch.decode_batch(
+                    batch, device="cuda"))
+                walls[k].append(wall)
+                for i, ((p, _), (q, _)) in enumerate(zip(out, fast)):
+                    if not np.array_equal(p, q):
+                        raise AssertionError(
+                            f"d2h_segments={k}: stream {i} not bit-identical")
+    finally:
+        set_active(resolve())
+    log(f"device_batch: decode_batch with d2h_segments 1 / 4, 8 runs each in "
+        f"turns, all bit-identical: median {np.median(walls[1]):.4f} / "
+        f"{np.median(walls[4]):.4f} s, range {min(walls[1]):.4f}-"
+        f"{max(walls[1]):.4f} / {min(walls[4]):.4f}-{max(walls[4]):.4f} s ({card})")
+    return launches
+
+
+# The chunked decode against decode(): both float32, the 512-term synthesis
+# product summed by cuBLAS at two shapes ([rows * 2 * 2340, 512] against
+# [1152, 512]), so a sample within 1e-2 LSB of a rounding boundary can land
+# on either side. On the CPU the two are equal sample for sample
+# (tests/test_torch_chunked.py holds 99.9% there).
+CHUNKED_EXACT = 0.998
+
+
+def phase_chunked(track: bytes, card: str) -> dict:
+    """The 60 s track as one batch of rows (decode_symbols_chunked) against
+    decode(). Returns the kernels' launches in one chunked decode at the
+    default config."""
+    import mp3tpu_torch
+    from mp3tpu_torch import pipeline as pl
+    from mp3tpu_torch.config import get_active, resolve, set_active
+    from mp3tpu_torch.oracle.decoder import decode_symbols
+    st, _info, _ = pl.load_symbols(track)
+    rows = -(-st.n_granules // 128)
+    ref, _ = mp3tpu_torch.decode(track, gapless=False, device="cuda")
+    g_or = 5 * 128                   # the oracle on five rows' granules
+    oracle = quantize_np(decode_symbols(st.slice_granules(0, g_or)))
+    n_or = g_or * 576
+    compare_i16(ref[:n_or], oracle[:n_or],
+                f"chunked: decode() vs the float64 oracle, first {n_or / SR:.1f} s")
+
+    def median_s(fn, n=5):
+        fn()
+        return float(np.median([timed_s(fn)[1] for _ in range(n)]))
+
+    def chunked():
+        return pl.decode_symbols_chunked(st, output="int16", device="cuda")
+
+    launches, walls = {}, {}
+    try:
+        for k in (1, get_active().decode.d2h_segments_single):
+            set_active(resolve(decode={"d2h_segments_single": k}))
+            zero_counts()
+            got = chunked()
+            launches[k] = read_counts()
+            d = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+            exact = float((d == 0).mean())
+            log(f"chunked: {st.n_granules} granules as {rows} rows of {CHUNK_G}, "
+                f"d2h_segments_single={k}: launches {launches[k]}, max |d| "
+                f"{int(d.max())} LSB, exact {exact:.6f} against decode() "
+                f"(held to {CHUNKED_EXACT}; over 0.999: {exact > 0.999})")
+            if got.shape != ref.shape or d.max() > 1 or exact < CHUNKED_EXACT:
+                raise AssertionError("chunked decode outside 1 LSB / "
+                                     f"{CHUNKED_EXACT} exact")
+            compare_i16(got[:n_or], oracle[:n_or],
+                        f"chunked (K={k}) vs the float64 oracle, first "
+                        f"{n_or / SR:.1f} s")
+            calls = k if rows >= 2 * k and rows % k == 0 else 1
+            if launches[k]["fused_z"] != calls:
+                raise AssertionError(f"chunked decode: {launches[k]} launches, "
+                                     f"expected {calls}")
+            walls[k] = median_s(chunked)
+    finally:
+        set_active(resolve())
+    k = get_active().decode.d2h_segments_single
+    w_dev = median_s(lambda: pl.decode_symbols_device(st, output="int16",
+                                                      device="cuda"))
+    w_all = median_s(lambda: mp3tpu_torch.decode(track, device="cuda"))
+    audio_s = len(ref) / SR
+    log(f"chunked: decode_symbols_chunked {walls[1]:.4f} s in one launch, "
+        f"{walls[k]:.4f} s in {k} (the default); decode_symbols_device of the "
+        f"same symbols {w_dev:.4f} s (144 launches); decode() whole "
+        f"{w_all:.4f} s, {audio_s / w_all:.1f}x realtime (medians of 5 warm "
+        f"runs; {card})")
+    return launches[k]
+
+
+def phase_cli(clips: dict, track: bytes, card: str) -> None:
+    """mp3tpu_torch.cli.main in this process, on the default device."""
+    import contextlib
+    import io
+    import tempfile
+    import mp3tpu_torch
+    from mp3tpu_torch import cli
+
+    def run(argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return buf.getvalue().strip()
+
+    def wav(path):
+        with open(path, "rb") as f:
+            return np.frombuffer(f.read()[44:], "<i2").reshape(-1, 2)
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = {}
+        for name, data in list(clips.items()) + [("track60", track)]:
+            paths[name] = os.path.join(d, f"{name}.mp3")
+            with open(paths[name], "wb") as f:
+                f.write(data)
+        zero_counts()
+        info = json.loads(run(["info", paths["track60"]]))
+        log(f"cli info: {info}")
+        if info["sample_rate"] != SR or info["channels"] != 2 \
+                or info["decode_errors"] != 0:
+            raise AssertionError("cli info: wrong stream facts")
+        log("cli decode: " + run(["decode", paths["tonal"], "-o",
+                                  os.path.join(d, "tonal.wav")]))
+        pcm, _ = mp3tpu_torch.decode(clips["tonal"], device="cuda")
+        if not np.array_equal(wav(os.path.join(d, "tonal.wav")), pcm):
+            raise AssertionError("cli decode: the WAV is not decode()'s PCM")
+        loud = json.loads(run(["loudness"] + [paths[n] for n in clips]))
+        want = mp3tpu_torch.levels_batch(list(clips.values()), device="cuda")
+        for name, (ld, pk) in zip(clips, want):
+            got = loud["tracks"][paths[name]]
+            if (got["loudness_db"], got["peak_db"]) != (round(ld, 2), round(pk, 2)):
+                raise AssertionError(f"cli loudness {name}: {got}")
+        log(f"cli loudness: {list(loud['tracks'].values())}")
+        segs = json.loads(run(["segments", paths["transients"], paths["track60"]]))
+        log(f"cli segments: {[len(v) for v in segs.values()]} segments")
+        if not segs[paths["track60"]]:
+            raise AssertionError("cli segments: none found in the track")
+        out = json.loads(run(["split", paths["track60"], "-d",
+                              os.path.join(d, "clips")]))["clips"]
+        n_seg = len(mp3tpu_torch.segment(track, device="cuda"))
+        if len(out) != n_seg or not all(os.path.getsize(p) > 44 for p in out):
+            raise AssertionError("cli split: clips missing or empty")
+        log(f"cli split: {len(out)} WAV clips")
+        try:
+            run(["split", paths["track60"], "-f", "mp3", "-d",
+                 os.path.join(d, "mp3")])
+        except NotImplementedError as e:
+            log(f"cli split -f mp3: raises NotImplementedError ({e})")
+        else:
+            raise AssertionError("cli split -f mp3 did not raise")
+        played = json.loads(run(["play", paths["track60"], "--loop", "21.3:23.8",
+                                 "--times", "2", "-o", os.path.join(d, "loop.wav")]))
+        got = wav(os.path.join(d, "loop.wav"))
+        n = int(round(23.8 * SR)) - int(round(21.3 * SR))
+        if len(got) != 2 * n or not np.array_equal(got[:n], got[n:]) \
+                or played["metrics"]["samples_out"] != 2 * n \
+                or int(np.abs(got).max()) == 0:
+            raise AssertionError("cli play --loop: not two equal copies")
+        launches = read_counts()
+        log(f"cli play --loop 21.3:23.8 --times 2: two equal copies of {n} "
+            f"samples; the phase's launches {launches} ({card})")
+        if launches["fused_z"] <= 0:
+            raise AssertionError("the cli did not go through the kernel")
 
 
 def phase_config3(clips: dict, card: str) -> None:
@@ -717,15 +1079,20 @@ def main() -> int:
         return 0
     clips = timed("clips", read_clips)
     krec, check_calls = timed("kernel", phase_kernel, clips, card)
-    paths = {"decode_batch": None, "player": None, "scheduler": None}
+    paths = {}
     paths["decode_batch"], batch, fast = timed("decode_batch",
                                                phase_decode_batch, clips)
+    timed("window_loop", window_loop_ms, batch, card)
+    paths["device_batch"] = timed("device_batch", phase_device_batch, clips,
+                                  batch, fast, card)
     timed("config3", phase_config3, clips, card)
     track = timed("track", read_track)
     paths["player"] = timed("player", phase_player, track, card)
+    paths["chunked"] = timed("chunked", phase_chunked, track, card)
     paths["scheduler"] = timed("scheduler", phase_scheduler, batch, fast, card)
+    timed("cli", phase_cli, clips, track, card)
 
-    # each kernel's launches in the three paths' runs, each counted from 0;
+    # each kernel's launches in the five paths' runs, each counted from 0;
     # the kernel phase's calls apart. No path calls fused_frontend (nor its
     # TPU kernel, in the JAX package), so its path launches read 0.
     # Times, errors and bounds at the shape and types of the decode_batch
@@ -745,7 +1112,7 @@ def main() -> int:
             "check_calls": check_calls[name],
             **next(c for c in krec[name]
                    if c["S"] == 64 and c["types"] == "int32/int16"),
-            "cases": [{k: c[k] for k in ("S", "types", "used_by", "ms",
+            "cases": [{k: c[k] for k in ("S", "G", "types", "used_by", "ms",
                                          "ms_cold_l2", "bound_us", "bound_share")}
                       for c in krec[name]]})
     log(json.dumps({"kernels": kernels}))

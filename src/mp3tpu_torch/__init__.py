@@ -6,4 +6,13 @@ The host half (container parse, C++ unpack, tables, fault counters, config)
 is the port's own copy of mp3tpu's: this package imports torch, never jax
 and nothing of mp3tpu.
 """
-from .api import decode, decode_batch, levels, loudness, play, segment  # noqa: F401
+from .api import (decode, decode_batch, global_metrics, init, levels,  # noqa: F401
+                  levels_batch, loudness, play, segment, segment_batch, split)
+
+
+def __getattr__(name):
+    # lazy: pipeline imports torch and the kernels' modules
+    if name == "DecodedBatch":
+        from .pipeline import DecodedBatch
+        return DecodedBatch
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no file of src/mp3tpu_torch, and no line of
 chip_smoke.py, imports JAX, the JAX package mp3tpu (any of it) or the test
 fixtures, and a process where neither JAX nor mp3tpu can be imported
-decodes, batch-decodes, plays and scans levels with the port, as on a GPU
-host without them."""
+decodes, batch-decodes (to the host and to the device-resident handle), plays,
+scans levels and segments in batches and runs the command line with the port,
+as on a GPU host without them."""
+import json
 import os
 import re
 import subprocess
@@ -36,6 +38,9 @@ def test_port_sources_import_no_jax():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
              if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) >= 10
+    names = {os.path.relpath(f, PORT) for f in files}
+    assert {"cli.py", os.path.join("utils", "profiling.py"), "api.py",
+            "transfer.py"} <= names
     for path in files:
         for mod in imported_modules(path):
             assert not any(mod == b or mod.startswith(b + ".")
@@ -56,6 +61,15 @@ def test_decodes_without_jax(tmp_path):
         f"p = mp3tpu_torch.play({str(src)!r}, device='cpu', speed=0.75)\n"
         "p.play(); assert len(p.sink.pcm) > len(pcm)\n"
         f"mp3tpu_torch.levels({str(src)!r}, device='cpu')\n"
+        f"[lv] = mp3tpu_torch.levels_batch([{str(src)!r}], device='cpu')\n"
+        f"[sg] = mp3tpu_torch.segment_batch([{str(src)!r}], device='cpu')\n"
+        "assert len(lv) == 2 and len(sg) >= 1\n"
+        f"h = mp3tpu_torch.decode_batch([{str(src)!r}], device='cpu', "
+        "output='device')\n"
+        "assert isinstance(h, mp3tpu_torch.DecodedBatch)\n"
+        "assert np.array_equal(h.numpy(0)[0], b)\n"
+        "from mp3tpu_torch import cli\n"
+        f"cli.main(['info', {str(src)!r}, '--device', 'cpu'])\n"
         "assert sys.modules['jax'] is None and sys.modules['mp3tpu'] is None\n"
         "print('ok', sr)\n")
     # one OpenMP thread, like the test workers (test_torch_decode.py)
@@ -64,7 +78,9 @@ def test_decodes_without_jax(tmp_path):
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.split() == ["ok", "44100"]
+    info, ok = r.stdout.strip().splitlines()
+    assert json.loads(info)["sample_rate"] == 44100
+    assert ok.split() == ["ok", "44100"]
     want, _ = mp3tpu_torch.decode(data, device="cpu")
     assert np.array_equal(np.load(tmp_path / "pcm.npy"), want)
     wantb = mp3tpu_torch.decode_batch([data], device="cpu")[0][0]
