@@ -6,9 +6,9 @@
 Phases, each printing its numbers and its seconds on lines of its own; any
 failure raises and the script exits non-zero:
   1. environment: torch and CUDA versions, the card's name and power limit;
-  2. build: the port's C++ host unpacker (csrc/unpack.cpp, g++) and the
-     CUDA kernels (csrc/fused_z.cu, nvcc), both at once; the run fails if
-     either does not build or load;
+  2. build: the port's C++ host library (csrc/unpack.cpp, encode_rows.cpp
+     and mux_stream.cpp, g++) and the CUDA kernels (csrc/fused_z.cu, nvcc),
+     both at once; the run fails if either does not build or load;
   3. kernel vs plain: fused_pipeline_z (C1-C5) and fused_frontend (C1-C4)
      through kernels/selfcheck.py's checks (odd pair counts, every input
      type, bit-identity across launches and batch sizes, zero pairs), then
@@ -47,13 +47,26 @@ failure raises and the script exits non-zero:
   9. scheduler: decode_batch_streams of the 64 streams at 64 slots against
      decode_batch, and decode_batch with decode.use_native=False, which
      goes through the scheduler;
- 10. cli: mp3tpu_torch.cli.main in this process, on the card by default:
-     info, decode (the WAV equals decode()), loudness, segments, split,
-     play --loop to a WAV; split -f mp3 must raise.
+ 10. encode: on the card, with no fallback: the bit count against vcount and
+     the device emitter against the C++ row emitter on CUDA tensors (random
+     rows of every layout and rows the loops produced); encode_batch of 64,
+     16 and 1 streams x 10 s of int16-origin PCM (the port's decode of the
+     clips, scaled per stream) at 128 kbps with noise shaping on: every
+     stream parses, decodes to its input's length, SNR over its floor,
+     reruns byte-identical, first call and median of 5 reruns, the phase
+     walls, the outer loops' iteration counts, peak device memory; 4
+     streams x 4 s against the port on the CPU (sizes equal, SNR within 0.5
+     dB, share of identical rows); transcode_batch of the 64 clips to 96
+     kbps == encode_batch of the handle's .numpy(), without the PCM's copy
+     to the host, beside the same through the host; encode() of the 60 s
+     track, and 2 s of it with device_loops on and off;
+ 11. cli: mp3tpu_torch.cli.main in this process, on the card by default:
+     info, decode (the WAV equals decode()), loudness, segments, split (WAV
+     and MP3 clips), transcode, play --loop to a WAV.
 The kernels' JSON record gives each kernel's launches in the runs of
-decode_batch, the device-resident batch, the full play, the chunked decode
-and the scheduler, each counted from 0 just before the run, and apart from
-them the calls of the kernel phase. The line before the last is the card's;
+decode_batch, the device-resident batch, the full play, the chunked decode,
+the scheduler and the transcode, each counted from 0 just before the run,
+and apart from them the calls of the kernel phase. The line before the last is the card's;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
 nothing of mp3tpu (the JAX package); needs no LAME.
 
@@ -61,7 +74,13 @@ nothing of mp3tpu (the JAX package); needs no LAME.
 
 instead profiles the player (plain, EQ, speed 0.75), the scheduler and
 levels() under cProfile and torch.profiler, after the build, and prints the
-tables.
+tables; then the encoder: encode_batch and transcode_batch of 16 streams
+under the profilers, the loops with and without the early exit, three
+row-block sizes, and device_loops on against off by stream length.
+
+    python3 chip_smoke.py --encode
+
+instead runs only the encode phase (11), after the build.
 
     python3 chip_smoke.py --variants
 
@@ -730,13 +749,23 @@ def phase_cli(clips: dict, track: bytes, card: str) -> None:
         if len(out) != n_seg or not all(os.path.getsize(p) > 44 for p in out):
             raise AssertionError("cli split: clips missing or empty")
         log(f"cli split: {len(out)} WAV clips")
-        try:
-            run(["split", paths["track60"], "-f", "mp3", "-d",
-                 os.path.join(d, "mp3")])
-        except NotImplementedError as e:
-            log(f"cli split -f mp3: raises NotImplementedError ({e})")
-        else:
-            raise AssertionError("cli split -f mp3 did not raise")
+        mp3s = json.loads(run(["split", paths["track60"], "-f", "mp3", "-b", "96",
+                               "-d", os.path.join(d, "mp3")]))["clips"]
+        for m, w in zip(mp3s, out):
+            got, _ = mp3tpu_torch.decode(m, device="cuda")
+            if got.shape != wav(w).shape:
+                raise AssertionError("cli split -f mp3: a clip's length differs "
+                                     "from its WAV clip's")
+        log(f"cli split -f mp3: {len(mp3s)} MP3 clips of the WAV clips' lengths")
+        os.makedirs(os.path.join(d, "tc"))
+        tc = json.loads(run(["transcode", paths["tonal"], paths["sweep"], "-b",
+                             "96", "-d", os.path.join(d, "tc")]))
+        for src, o in zip(("tonal", "sweep"), tc["outputs"]):
+            got, _ = mp3tpu_torch.decode(o, device="cuda")
+            if got.shape != mp3tpu_torch.decode(clips[src], device="cuda")[0].shape:
+                raise AssertionError(f"cli transcode {src}: another length")
+        log(f"cli transcode: {[os.path.basename(o) for o in tc['outputs']]} in "
+            f"{tc['wall_s']} s, each of its input's length")
         played = json.loads(run(["play", paths["track60"], "--loop", "21.3:23.8",
                                  "--times", "2", "-o", os.path.join(d, "loop.wav")]))
         got = wav(os.path.join(d, "loop.wav"))
@@ -750,6 +779,352 @@ def phase_cli(clips: dict, track: bytes, card: str) -> None:
             f"samples; the phase's launches {launches} ({card})")
         if launches["fused_z"] <= 0:
             raise AssertionError("the cli did not go through the kernel")
+
+
+# ---------------------------------------------------------------- encoder
+
+def q16(a: np.ndarray) -> np.ndarray:
+    """float PCM rounded to int16-origin values k/32768: what a WAV holds."""
+    return np.clip(np.rint(a * 32768.0), -32768, 32767) / 32768.0
+
+
+def quant_rows(rng, n: int) -> np.ndarray:
+    """Quantized spectra shaped like rate-loop output: decaying magnitudes
+    (some with escapes), a count1 stretch, a zero tail; degenerate rows
+    first."""
+    rows = np.zeros((n, 576), np.int32)
+    for i in range(n):
+        live = int(rng.integers(8, 560))
+        scale = float(rng.choice([2, 8, 30, 120, 900]))
+        mag = rng.standard_normal(live) * scale * np.exp(-3.0 * np.arange(live) / live)
+        rows[i, :live] = np.rint(mag)
+        c1 = int(rng.integers(0, 60)) * 4
+        lo = max(live - c1, 0)
+        rows[i, lo:live] = rng.integers(-1, 2, live - lo)
+    rows[0] = 0
+    rows[1] = 0
+    rows[1, :8] = [1, -1, 0, 1, -1, 0, 0, 1]
+    rows[2] = 0
+    rows[2, :2] = (8191 + 15, -(8191 + 15))
+    rows[3] = 1
+    return rows
+
+
+def encoder_exact_tier(card: str) -> None:
+    """On CUDA tensors, integer for integer: the bit count against vcount,
+    and the device emitter against the C++ row emitter, on random rows of
+    every layout and on rows the loops produced."""
+    from mp3tpu_torch.encoder import emit_device, native_emit, vloop
+    from mp3tpu_torch.encoder import vloop_device as vd
+    from mp3tpu_torch.encoder.tables import encoder_tables
+    from mp3tpu_torch.encoder.vcount import count_bits_rows_full
+    rng = np.random.default_rng(11)
+    t = encoder_tables(SR, "cuda")
+    ix = quant_rows(rng, 640)
+    # rows that fit part2_3_length's 12 bits under every layout, with the
+    # scalefactors' bits: the others cannot be coded at all
+    fits = np.all([count_bits_rows_full(ix, SR, bt)[0] <= 3900
+                   for bt in (0, 1, 2)], axis=0)
+    ix = ix[fits][:512]
+    ix_dev = torch.from_numpy(ix).cuda()
+    n_checked = 0
+    for bt, layout in ((0, "long"), (1, "switched"), (2, "short")):
+        ref, sel = count_bits_rows_full(ix, SR, bt)
+        bits, selr, _bv, _k, c1 = vd._count_rows(t, ix_dev, bt != 0)
+        tsel = np.stack([sel["t0"], sel["t1"], sel["t2"]], 1)
+        if not (np.array_equal(bits.cpu().numpy(), ref)
+                and np.array_equal(vd._TID[selr.cpu().numpy()], tsel)
+                and np.array_equal(c1.cpu().numpy(), sel["c1table"])):
+            raise AssertionError(f"_count_rows differs from vcount ({layout})")
+        n = len(ix)
+        if layout == "short":
+            sf = np.concatenate([rng.integers(0, 16, (n, 3, 6)),
+                                 rng.integers(0, 8, (n, 3, 6))], axis=2)
+        else:
+            sf = np.concatenate([rng.integers(0, 16, (n, 11)),
+                                 rng.integers(0, 8, (n, 10))], axis=1)
+        sf[::7] = 0
+        for use_sf in (False, True):
+            words, meta = emit_device.emit_rows_device(
+                ix_dev, torch.from_numpy(sf).cuda(), selr, c1, SR, layout, use_sf)
+            got = emit_device.words_to_bytes(words).cpu().numpy()
+            lsf = sf if layout != "short" else np.zeros((n, 21), np.int64)
+            ssf = sf if layout == "short" else np.zeros((n, 3, 12), np.int64)
+            packed = native_emit.encode_rows_packed(
+                ix, np.full(n, bt), np.full(n, use_sf), lsf, ssf, tsel,
+                sel["c1table"], SR)
+            if packed is None:
+                raise AssertionError("the C++ row emitter is unavailable")
+            if not (np.array_equal(got, packed[0]) and np.array_equal(
+                    meta.cpu().numpy(), packed[1][:, :5])):
+                raise AssertionError(f"device emitter differs from the C++ "
+                                     f"emitter ({layout}, use_sf={use_sf})")
+            n_checked += n
+    # rows the loops produced: count == emit on the card
+    xr = (rng.standard_normal((2048, 576)) * np.exp(-np.arange(576) / 120)[None]
+          * rng.uniform(0.01, 2.0, (2048, 1))).astype(np.float32)
+    en = (xr.astype(np.float64) ** 2).sum(1) / 576
+    budgets = rng.integers(500, 3000, 2048)
+    xr_dev = torch.from_numpy(xr).cuda()
+    idx = np.arange(2048)
+    for kind, layout, shape in (("long", "long", (21,)), ("long", "switched", (21,)),
+                                ("short", "short", (3, 12)), ("rate", "long", None)):
+        bt = {"long": 0, "switched": 1, "short": 2}[layout]
+        if shape is not None:
+            xmin = torch.from_numpy((en.reshape((-1,) + (1,) * len(shape)) * rng.uniform(
+                0.002, 0.5, (2048,) + shape)).astype(np.float32)).cuda()
+        if kind == "long":
+            pend = vd.outer_rows_gathered_pending(xr_dev, xmin, idx, budgets, SR,
+                                                  block_type=bt)
+        elif kind == "short":
+            pend = vd.outer_rows_short_gathered_pending(xr_dev, xmin, idx, budgets, SR)
+        else:
+            pend = vd.rate_rows_gathered_pending(xr_dev, idx, budgets, SR, bt)
+        by, m5, _gg, tcols, c1, hb, _sbg = pend.emit_and_take(layout, kind != "rate", idx)
+        raw = pend.fetch_rows()
+        sfc = m5[:, 2].astype(np.int64)
+        sfb = (18 * (vloop._SLEN1[sfc] + vloop._SLEN2[sfc]) if layout == "short"
+               else 11 * vloop._SLEN1[sfc] + 10 * vloop._SLEN2[sfc])
+        if not np.array_equal(m5[:, 0], hb + sfb) or (m5[:, 0] > budgets).any():
+            raise AssertionError(f"{kind}/{layout}: emitted bits differ from the "
+                                 "count or exceed the budget")
+        n = len(idx)
+        lsf = raw["sf"] if kind == "long" else np.zeros((n, 21), np.int64)
+        ssf = raw["sf"] if kind == "short" else np.zeros((n, 3, 12), np.int64)
+        packed = native_emit.encode_rows_packed(
+            raw["ix"], np.full(n, bt), np.full(n, kind != "rate"), lsf, ssf,
+            vd._TID[tcols], c1, SR)
+        if not (np.array_equal(by, packed[0]) and np.array_equal(m5, packed[1][:, :5])):
+            raise AssertionError(f"{kind}/{layout}: loop rows emit differently "
+                                 "on the device and in C++")
+        n_checked += n
+    log(f"encode exact tier: _count_rows == vcount on {len(ix)} rows x 3 layouts; "
+        f"device emitter == C++ emitter on {n_checked} rows (random rows of "
+        f"every layout with and without scalefactors; rows of the long, "
+        f"switched, short and rate loops, bits <= budget) ({card})")
+
+
+def stream_snr_db(mp3s: list, refs: list) -> list:
+    """Each stream decoded through the port on the card: its gapless length
+    must be its input's; the SNR against the input in dB."""
+    import mp3tpu_torch
+    out = []
+    dec = mp3tpu_torch.decode_batch(mp3s, device="cuda")
+    for i, ((pcm, rate), ref) in enumerate(zip(dec, refs)):
+        if rate != SR or pcm.shape != ref.shape:
+            raise AssertionError(f"stream {i}: decodes to {pcm.shape} at {rate}, "
+                                 f"its input is {ref.shape}")
+        a = ref.astype(np.float64)
+        err = pcm.astype(np.float64) - a
+        out.append(10 * np.log10((a ** 2).mean() / max((err ** 2).mean(), 1e-30)))
+    return out
+
+
+def granule_rows(mp3: bytes):
+    """The stream's coded granule-channel rows: (spectrum, exponents)."""
+    from mp3tpu_torch.pipeline import load_symbols
+    st, _info, _index = load_symbols(mp3)
+    return st.is_.reshape(-1, 576), st.exp.reshape(-1, 64)
+
+
+# SNR floors of the three clips' re-encodes at 128 kbps with noise shaping on,
+# dB: the port on the CPU gives 45.74 / 41.14 (sweep), 8.68 / 8.72
+# (transients, whose noise is shaped under the masking threshold of loud
+# bursts) and 43.53 / 42.67 (tonal) at the least / the largest scale of the
+# batch; the floors lie 1.5 dB under the lesser
+ENCODE_SNR_FLOOR = {"sweep": 39.5, "transients": 7.0, "tonal": 41.0}
+
+
+def phase_encode(clips: dict, track: bytes, batch: list, fast: list,
+                 card: str) -> dict:
+    """The encoder on the card (none of its failures is caught: no CPU
+    fallback, no Python fallback for the C++ emitter and mux). Returns the
+    kernels' launches in the transcode run."""
+    import mp3tpu_torch
+    from mp3tpu_torch.container import frames as fr
+    from mp3tpu_torch.encoder import batch as eb
+    from mp3tpu_torch.encoder import vloop_device as vd
+    from mp3tpu_torch.transfer import HostCopy
+    names = list(clips)
+    mib = 1 << 20
+    encoder_exact_tier(card)
+
+    # BASELINE config 5's shape: 64 x 10 s stereo int16-origin PCM at 44.1
+    # kHz (the port's own decode of the clips, scaled per stream), 128 kbps
+    pcm64 = [q16(pcm.astype(np.float64) / 32768.0 * (0.4 + 0.6 * i / 63))
+             for i, (pcm, _) in enumerate(fast)]
+    ref64 = [np.rint(p * 32768.0).astype(np.int16) for p in pcm64]
+    results = {}
+    for B in (64, 16, 1):
+        pcms = pcm64[:B]
+        audio_s = sum(len(p) for p in pcms) / SR
+        torch.cuda.reset_peak_memory_stats()
+        first, wall0 = timed_s(lambda: mp3tpu_torch.encode_batch(
+            pcms, SR, bitrate=128, device="cuda"))
+        peak = torch.cuda.max_memory_allocated()
+        walls = []
+        for _ in range(5):
+            again, w = timed_s(lambda: mp3tpu_torch.encode_batch(
+                pcms, SR, bitrate=128, device="cuda"))
+            walls.append(w)
+            if again != first:
+                raise AssertionError(f"encode_batch B={B}: a rerun gives other bytes")
+        med = float(np.median(walls))
+        log(f"encode_batch: {B} x {CLIP_S:g} s stereo, 128 kbps, noise shaping "
+            f"on: first call {wall0:.4f} s ({audio_s / wall0:.1f}x realtime), "
+            f"median of 5 reruns {med:.4f} s ({audio_s / med:.1f}x; "
+            f"{min(walls):.4f}-{max(walls):.4f}), reruns byte-identical, "
+            f"{sum(len(o) for o in first)} bytes, peak device memory "
+            f"{peak / mib:.1f} MiB ({card})")
+        for i, o in enumerate(first):
+            idx = fr.scan_frames(np.frombuffer(o, np.uint8))
+            want = -(-(len(pcms[i]) + 528 + 529) // 1152) + 1   # and the tag frame
+            if idx.n_frames != want:
+                raise AssertionError(f"B={B} stream {i}: {idx.n_frames} frames, "
+                                     f"expected {want}")
+        snr = stream_snr_db(first, ref64[:B])
+        by_clip = {n: [s for i, s in enumerate(snr) if names[i % 3] == n]
+                   for n in names}
+        log(f"encode_batch: B={B}: every stream parses and decodes to its "
+            f"input's length; SNR dB by clip (min-max over the scales): "
+            + ", ".join(f"{n} {min(v):.2f}-{max(v):.2f}"
+                        for n, v in by_clip.items() if v))
+        for n, v in by_clip.items():
+            if v and min(v) < ENCODE_SNR_FLOOR[n]:
+                raise AssertionError(f"B={B}: {n} at {min(v):.2f} dB, under "
+                                     f"its floor {ENCODE_SNR_FLOOR[n]}")
+        results[B] = first
+    # a stream's bytes in another batch: cuBLAS and cuFFT pick by shape
+    same16 = sum(a == b for a, b in zip(results[16], results[64]))
+    same_rows = float((granule_rows(results[1][0])[0]
+                       == granule_rows(results[64][0])[0]).all(1).mean())
+    log(f"encode_batch: batch dependence: {same16} of 16 streams of B=16 have "
+        f"their bytes of B=64; stream 0 alone (B=1) "
+        f"{'equals' if results[1][0] == results[64][0] else 'differs from'} "
+        f"its bytes in B=64 ({100 * same_rows:.2f}% of its rows' spectra equal)")
+
+    # the phase walls and the loop telemetry of one more 64-stream run
+    os.environ["MP3TPU_ENCODE_PROFILE"] = "1"
+    os.environ["MP3TPU_ITER_HIST"] = "1"
+    vd.ITER_STATS.clear()
+    try:
+        _, wall = timed_s(lambda: mp3tpu_torch.encode_batch(
+            pcm64, SR, bitrate=128, device="cuda"))
+    finally:
+        del os.environ["MP3TPU_ENCODE_PROFILE"], os.environ["MP3TPU_ITER_HIST"]
+    prof = dict(eb.LAST_PROFILE)
+    log(f"encode_batch: 64 streams with a sync after each phase {wall:.4f} s: "
+        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in prof.items()) + f" ({card})")
+    log(f"encode_batch: upgraded rows {prof.get('upgraded_rows', 0)} of "
+        f"{prof['total_rows']} "
+        f"({100 * prof.get('upgraded_rows', 0) / prof['total_rows']:.1f}%); "
+        "outer-loop iterations per row (count by iterations): "
+        + "; ".join(f"{k} {v.tolist()}" for k, v in sorted(vd.ITER_STATS.items())))
+
+    # the card against the port on the CPU: 4 streams, their first 4 s
+    sub = [p[: 4 * SR] for p in pcm64[:4]]
+    on_card = mp3tpu_torch.encode_batch(sub, SR, bitrate=128, device="cuda")
+    t0 = time.perf_counter()
+    on_cpu = mp3tpu_torch.encode_batch(sub, SR, bitrate=128, device="cpu")
+    wall_cpu = time.perf_counter() - t0
+    refs = [np.rint(p * 32768.0).astype(np.int16) for p in sub]
+    snr_a, snr_b = stream_snr_db(on_card, refs), stream_snr_db(on_cpu, refs)
+    shares = []
+    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+        na = fr.scan_frames(np.frombuffer(a, np.uint8)).n_frames
+        nb = fr.scan_frames(np.frombuffer(b, np.uint8)).n_frames
+        if len(a) != len(b) or na != nb:
+            raise AssertionError(f"card vs CPU, stream {i}: {len(a)} bytes in "
+                                 f"{na} frames against {len(b)} in {nb}")
+        if abs(snr_a[i] - snr_b[i]) > 0.5:
+            raise AssertionError(f"card vs CPU, stream {i}: SNR {snr_a[i]:.2f} "
+                                 f"against {snr_b[i]:.2f} dB")
+        (xa, ea), (xb, eb_) = granule_rows(a), granule_rows(b)
+        shares.append(float(((xa == xb).all(1) & (ea == eb_).all(1)).mean()))
+    log(f"encode_batch: card against the port on the CPU, 4 streams x 4 s: "
+        f"frames and bytes equal in number; rows with identical spectrum and "
+        f"exponents {[f'{100 * s:.2f}%' for s in shares]}; SNR dB "
+        f"{[f'{x:.2f}' for x in snr_a]} against {[f'{x:.2f}' for x in snr_b]} "
+        f"(within 0.5); the CPU run took {wall_cpu:.2f} s ({card})")
+
+    # transcode: the 64 clips to 96 kbps, the PCM staying on the card
+    pcm_bytes = sum(p.size * 2 for p, _ in fast)
+    mp3tpu_torch.transcode_batch(batch[:3], bitrate=96, device="cuda")  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    calls0, bytes0 = HostCopy.calls, HostCopy.nbytes
+    tc, wall_tc = timed_s(lambda: mp3tpu_torch.transcode_batch(
+        batch, bitrate=96, device="cuda"))
+    launches = read_counts()
+    crossed = HostCopy.nbytes - bytes0
+    peak_tc = torch.cuda.max_memory_allocated()
+    if launches["fused_z"] <= 0:
+        raise AssertionError("transcode_batch did not go through the kernel")
+    if crossed >= pcm_bytes // 4:
+        raise AssertionError(f"transcode_batch copied {crossed} bytes to the "
+                             f"host: the PCM ({pcm_bytes} bytes) did not stay")
+
+    def through_host():
+        handle = mp3tpu_torch.decode_batch(batch, device="cuda", output="device")
+        return mp3tpu_torch.encode_batch(
+            [p.astype(np.float64) / 32768.0 for p, _ in handle.numpy()], SR,
+            bitrate=96, device="cuda")
+
+    ref, wall_host = timed_s(through_host)
+    if tc != ref:
+        bad = [i for i, (a, b) in enumerate(zip(tc, ref)) if a != b]
+        raise AssertionError(f"transcode_batch differs from encode_batch of the "
+                             f"handle's PCM in streams {bad}")
+    walls = {"device": [wall_tc], "host": [wall_host]}
+    for _ in range(2):                           # in turns, within one call
+        walls["host"].append(timed_s(through_host)[1])
+        walls["device"].append(timed_s(lambda: mp3tpu_torch.transcode_batch(
+            batch, bitrate=96, device="cuda"))[1])
+    audio_s = sum(len(p) for p, _ in fast) / SR
+    md, mh = (float(np.median(walls[k])) for k in ("device", "host"))
+    log(f"transcode_batch: 64 clips to 96 kbps byte-identical to encode_batch of "
+        f"the handle's .numpy(); {HostCopy.calls - calls0} copies of {crossed} "
+        f"bytes to the host where the PCM is {pcm_bytes}; launches {launches}; "
+        f"medians of 3 in turns: {md:.4f} s ({audio_s / md:.1f}x realtime; "
+        f"{min(walls['device']):.4f}-{max(walls['device']):.4f}) against "
+        f"{mh:.4f} s through the host ({min(walls['host']):.4f}-"
+        f"{max(walls['host']):.4f}); peak device memory {peak_tc / mib:.1f} "
+        f"MiB ({card})")
+    snr = stream_snr_db(tc[:3], [p for p, _ in fast[:3]])
+    log(f"transcode_batch: the outputs decode to the inputs' lengths; SNR dB "
+        f"against the inputs' PCM {dict(zip(names, (round(s, 2) for s in snr)))}")
+
+    # single stream (BASELINE config 5 single): the 60 s track through the
+    # batched device encoder at B=1, and 2 s of it through the float64 host
+    # path beside the device path
+    pcm_t, _ = mp3tpu_torch.decode(track, device="cuda")
+    sig = pcm_t.astype(np.float64) / 32768.0
+    mp3tpu_torch.encode(sig[: 2 * SR], SR, bitrate=128, device="cuda",
+                        device_loops=True)  # warm-up at B=1 shapes
+    one, wall_on = timed_s(lambda: mp3tpu_torch.encode(
+        sig, SR, bitrate=128, device="cuda"))
+    if one != mp3tpu_torch.encode_batch([sig], SR, bitrate=128, device="cuda")[0]:
+        raise AssertionError("encode() of the track differs from encode_batch([pcm])")
+    [s_on] = stream_snr_db([one], [pcm_t])
+    cut = sig[20 * SR: 22 * SR]                  # the transients' first 2 s
+    a, w_dev = timed_s(lambda: mp3tpu_torch.encode(
+        cut, SR, bitrate=128, device="cuda", device_loops=True))
+    b, w_host = timed_s(lambda: mp3tpu_torch.encode(
+        cut, SR, bitrate=128, device="cuda", device_loops=False,
+        device_transform=False))
+    if len(a) != len(b):
+        raise AssertionError("device_loops on and off give other sizes")
+    cut16 = [np.rint(cut * 32768.0).astype(np.int16)] * 2
+    s_dev, s_host = stream_snr_db([a, b], cut16)
+    if abs(s_dev - s_host) > 3.0:
+        raise AssertionError(f"device_loops on {s_dev:.2f} dB, off {s_host:.2f} dB")
+    log(f"encode: the {TRACK_S:g} s track (device_loops by default: on) in "
+        f"{wall_on:.4f} s ({TRACK_S / wall_on:.1f}x realtime), == "
+        f"encode_batch([pcm])[0], SNR {s_on:.2f} dB; 2 s of it with "
+        f"device_loops on {w_dev:.4f} s / off (float64 host path) {w_host:.4f} "
+        f"s, equal sizes, SNR {s_dev:.2f} / {s_host:.2f} dB ({card})")
+    return launches
 
 
 def phase_config3(clips: dict, card: str) -> None:
@@ -1023,8 +1398,11 @@ def profile_run(what: str, fn, card: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # kernels and copies; the named ranges' device-side spans ("mp3tpu...")
+    # cover the idle time between them and are left out
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith("mp3tpu"))
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         busy += max(b - max(a, end), 0.0)
@@ -1057,6 +1435,64 @@ def profile_main(card: str) -> None:
         t0 = time.perf_counter()
         lv = mp3tpu_torch.levels(track, device="cuda")
         log(f"levels 60 s {when} {time.perf_counter() - t0:.4f} s {lv} ({card})")
+    profile_encoder(batch, track, card)
+
+
+def profile_encoder(batch: list, track: bytes, card: str) -> None:
+    """The encoder's measurements behind PERF.md: one encode_batch under the
+    profilers, the loops with and without the early exit, the row-block
+    size, and device_loops on against off by stream length."""
+    import mp3tpu_torch
+    from mp3tpu_torch.encoder import vloop_device as vd
+    fast = mp3tpu_torch.decode_batch(batch, device="cuda")
+    pcm64 = [q16(pcm.astype(np.float64) / 32768.0 * (0.4 + 0.6 * i / 63))
+             for i, (pcm, _) in enumerate(fast)]
+
+    def enc(pcms):
+        return mp3tpu_torch.encode_batch(pcms, SR, bitrate=128, device="cuda")
+
+    profile_run("encode_batch 16x10s", lambda: enc(pcm64[:16]), card)
+    profile_run("transcode_batch 16x10s", lambda: mp3tpu_torch.transcode_batch(
+        batch[:16], bitrate=96, device="cuda"), card)
+    ref = enc(pcm64)
+    walls = {False: [], True: []}
+    try:
+        for fixed in (False, True, True, False, False, True):
+            vd.FIXED_DEPTH = fixed
+            out, w = timed_s(lambda: enc(pcm64))
+            walls[fixed].append(w)
+            if out != ref:
+                raise AssertionError("fixed depth gives other bytes")
+    finally:
+        vd.FIXED_DEPTH = False
+    log(f"encode_batch 64x10s: outer loops with the early exit "
+        f"{[round(w, 4) for w in walls[False]]} s, at fixed depth "
+        f"{[round(w, 4) for w in walls[True]]} s, the same bytes ({card})")
+    block = vd.ROW_BLOCK["cuda"]
+    try:
+        for rows in (2048, 8192, 32768, 8192, 2048, 32768):
+            vd.ROW_BLOCK["cuda"] = rows
+            torch.cuda.reset_peak_memory_stats()
+            out, w = timed_s(lambda: enc(pcm64))
+            log(f"encode_batch 64x10s: row block {rows}: {w:.4f} s, peak device "
+                f"memory {torch.cuda.max_memory_allocated() / (1 << 20):.1f} MiB, "
+                f"bytes {'equal' if out == ref else 'DIFFER'} ({card})")
+            if out != ref:
+                raise AssertionError("the row block changes the bytes")
+    finally:
+        vd.ROW_BLOCK["cuda"] = block
+    sig = mp3tpu_torch.decode(track, device="cuda")[0].astype(np.float64) / 32768.0
+    for seconds in (0.1, 0.25, 0.5, 1.0, 2.0):
+        cut = sig[20 * SR: 20 * SR + int(seconds * SR)]
+        G = -(-(len(cut) + 1057) // 576)
+        on = [timed_s(lambda: mp3tpu_torch.encode(
+            cut, SR, bitrate=128, device="cuda", device_loops=True))[1]
+            for _ in range(3)]
+        off = timed_s(lambda: mp3tpu_torch.encode(
+            cut, SR, bitrate=128, device="cuda", device_loops=False,
+            device_transform=False))[1]
+        log(f"encode {seconds} s stereo ({G} granules): device_loops on "
+            f"{min(on):.4f} s (best of 3), off {off:.4f} s ({card})")
 
 
 def main() -> int:
@@ -1078,6 +1514,13 @@ def main() -> int:
         variants_main(card)
         return 0
     clips = timed("clips", read_clips)
+    if sys.argv[1:] == ["--encode"]:
+        import mp3tpu_torch
+        names = list(clips)
+        batch = [clips[names[i % len(names)]] for i in range(64)]
+        fast = mp3tpu_torch.decode_batch(batch, device="cuda")
+        timed("encode", phase_encode, clips, read_track(), batch, fast, card)
+        return 0
     krec, check_calls = timed("kernel", phase_kernel, clips, card)
     paths = {}
     paths["decode_batch"], batch, fast = timed("decode_batch",
@@ -1090,6 +1533,8 @@ def main() -> int:
     paths["player"] = timed("player", phase_player, track, card)
     paths["chunked"] = timed("chunked", phase_chunked, track, card)
     paths["scheduler"] = timed("scheduler", phase_scheduler, batch, fast, card)
+    paths["transcode"] = timed("encode", phase_encode, clips, track, batch,
+                               fast, card)
     timed("cli", phase_cli, clips, track, card)
 
     # each kernel's launches in the five paths' runs, each counted from 0;

@@ -1,6 +1,4 @@
-"""Public API of the PyTorch port: the decode, playback and analysis entry
-points of mp3tpu.api. The encoder's three (encode, encode_batch,
-transcode_batch) come with the encoder.
+"""Public API of the PyTorch port: the entry points of mp3tpu.api.
 
 Each takes `device` ("cuda" by default; "cpu" runs the plain versions of the
 kernels) and otherwise the arguments of its mp3tpu counterpart.
@@ -92,8 +90,8 @@ def segment_batch(paths, device="cuda", **kw):
 
 def split(path_or_bytes, out_dir, fmt: str = "wav", device="cuda",
           **kw) -> list:
-    """Write each sentence of a track to its own WAV clip; returns the
-    paths. fmt="mp3" waits on the encoder and raises NotImplementedError."""
+    """Write each sentence of a track to its own clip (WAV, or MP3 via ONE
+    batched re-encode); returns the paths."""
     from .pipeline import split_file
     return split_file(path_or_bytes, out_dir, fmt=fmt, device=device, **kw)
 
@@ -117,6 +115,37 @@ def levels_batch(paths, device="cuda") -> list:
     PCM comes to the host."""
     from .pipeline import track_levels_batch
     return track_levels_batch(paths, device=device)
+
+
+def encode(pcm, sample_rate, device="cuda", **kw):
+    """Float PCM [-1, 1] ([n] or [n, ch]) -> MP3 bytes (encoder.encode_pcm):
+    CBR with the bit reservoir, or VBR with vbr_quality. On the CPU, and for
+    short streams or VBR on a card, the float64 host path; else the batched
+    device encoder at B=1 (device_loops)."""
+    from .encoder import encode_pcm
+    return encode_pcm(pcm, sample_rate, device=device, **kw)
+
+
+def encode_batch(pcms, sample_rate=None, device="cuda", **kw):
+    """Batched multi-stream encode (SURVEY.md §3.4, the encoder's
+    aggregate-throughput path): spectra stay on the device from the
+    analysis transform through the rate loops. Also accepts a
+    DecodedBatch handle (see transcode_batch)."""
+    from .encoder import encode_batch as _impl
+    return _impl(pcms, sample_rate, device=device, **kw)
+
+
+def transcode_batch(paths, bitrate=None, device="cuda", **kw) -> list:
+    """Batched MP3 -> MP3 re-encode with the PCM on the device end to end
+    (SURVEY.md §3.2 + §3.4 chained): decode_batch(..., output="device")
+    feeds encode_batch directly: the int16 PCM is decoded into device
+    memory, trimmed/dequantized/padded there, and consumed by the
+    encoder's device transform without coming to the host. Returns MP3
+    bytes aligned with the inputs."""
+    from .encoder import encode_batch as _enc
+    from .pipeline import decode_files
+    return _enc(decode_files(list(paths), output="device", device=device),
+                bitrate=bitrate, device=device, **kw)
 
 
 def global_metrics():

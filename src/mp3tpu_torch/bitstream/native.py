@@ -1,14 +1,15 @@
-"""ctypes loader for the C++ fast-path unpacker (SURVEY.md B2/B4).
+"""ctypes loader for the C++ host library: the fast-path unpacker (SURVEY.md
+B2/B4), the encoder's row emitter and the stream mux (E5/E6).
 
 Counterpart of mp3tpu.bitstream.native, with the same functions and
-routing. It builds the port's copy of the unpacker, csrc/unpack.cpp with
-csrc/spec_tables.h, alone with g++ at first use (kernels/build.py: the
-Makefile's flags less -flto, into build/mp3tpu_torch/, under the build
-lock); the JAX package's encoder and muxer sources are not part of it.
-MP3TPU_NO_NATIVE (or decode.use_native=False) leaves the pure-Python path
-in unpack.py, the semantics oracle, as in the JAX package. A host without
-g++ has no unpacker either; where g++ is there, a failed build or load
-raises instead of falling back.
+routing. It builds the port's copies, csrc/unpack.cpp, csrc/encode_rows.cpp
+and csrc/mux_stream.cpp with csrc/spec_tables.h, into one library with g++
+at first use (kernels/build.py: the Makefile's flags less -flto, into
+build/mp3tpu_torch/, under the build lock). MP3TPU_NO_NATIVE (or
+decode.use_native=False) leaves the pure-Python paths (unpack.py,
+huffcode.encode_granule, mux_packed._assemble_python), the semantics
+oracles, as in the JAX package. A host without g++ has no library either;
+where g++ is there, a failed build or load raises instead of falling back.
 """
 from __future__ import annotations
 
@@ -50,6 +51,15 @@ def _load():
         [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32), ctypes.c_int32] +
         [ctypes.c_void_p] * 8 + [ctypes.c_int32] * 3 +
         [ctypes.c_void_p] * 2 + [ctypes.c_int32])
+    lib.mp3tpu_encode_rows.restype = ctypes.c_int
+    lib.mp3tpu_encode_rows.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int32] * 2 +
+        [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p])
+    lib.mp3tpu_mux_stream.restype = ctypes.c_int64
+    lib.mp3tpu_mux_stream.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] +
+        [ctypes.c_void_p] * 11 + [ctypes.c_int32] * 6 +
+        [ctypes.c_void_p, ctypes.c_int64])
     _lib, _checked = lib, True
     return _lib
 

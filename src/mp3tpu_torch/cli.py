@@ -1,8 +1,8 @@
 """Command line of the PyTorch port (counterpart of mp3tpu.cli):
-decode | play | practice | info | segments | split | loudness, each with
-the JAX CLI's arguments and JSON output, and --device (default cuda; cpu
-runs the kernels' plain versions). encode, transcode and bench come with
-the encoder and the benchmark.
+decode | play | practice | encode | transcode | info | segments | split |
+loudness, each with the JAX CLI's arguments and JSON output, and --device
+(default cuda; cpu runs the kernels' plain versions). bench comes with the
+benchmark.
 
     python -m mp3tpu_torch.cli info track.mp3 --device cpu
 """
@@ -117,12 +117,54 @@ def _cmd_segments(args):
 
 
 def _cmd_split(args):
-    """Export each sentence as its own clip file (wav; mp3 waits on the
-    encoder)."""
+    """Export each sentence as its own clip file (wav or mp3)."""
     from .pipeline import split_file
     paths = split_file(args.input, args.out_dir, fmt=args.format,
                        bitrate=args.bitrate, device=args.device)
     print(json.dumps({"clips": paths}))
+
+
+def _cmd_encode(args):
+    import struct
+    import numpy as np
+    from .encoder import encode_pcm
+    with open(args.input, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF":
+        raise SystemExit("encode expects a 16-bit PCM WAV input")
+    ch = struct.unpack("<H", data[22:24])[0]
+    sr = struct.unpack("<I", data[24:28])[0]
+    i = data.index(b"data")
+    pcm = np.frombuffer(data[i + 8:], "<i2").astype(np.float64) / 32768.0
+    pcm = pcm.reshape(-1, ch)
+    t0 = time.perf_counter()
+    mp3 = encode_pcm(pcm, sr, bitrate=args.bitrate,
+                     vbr_quality=args.vbr_quality, device=args.device)
+    dt = time.perf_counter() - t0
+    out = args.output or (args.input.rsplit(".", 1)[0] + ".mp3")
+    with open(out, "wb") as f:
+        f.write(mp3)
+    print(f"encoded {len(pcm)} samples -> {out} ({len(mp3)} bytes, "
+          f"{len(pcm) / sr / dt:.1f}x realtime)")
+
+
+def _cmd_transcode(args):
+    """Batched MP3->MP3 re-encode at a new bitrate; the PCM stays on the
+    device between decode and encode (api.transcode_batch)."""
+    import os
+    from .api import transcode_batch
+    t0 = time.perf_counter()
+    blobs = transcode_batch(args.input, bitrate=args.bitrate,
+                            device=args.device)
+    dt = time.perf_counter() - t0
+    outs = []
+    for p, b in zip(args.input, blobs):
+        base = os.path.basename(p).rsplit(".", 1)[0] + ".transcoded.mp3"
+        out = os.path.join(args.out_dir, base)
+        with open(out, "wb") as f:
+            f.write(b)
+        outs.append(out)
+    print(json.dumps({"outputs": outs, "wall_s": round(dt, 3)}))
 
 
 def _cmd_loudness(args):
@@ -228,9 +270,25 @@ def main(argv=None):
                      "no PCM download) as JSON")
     s.add_argument("input", nargs="+")
 
+    e = command("encode", _cmd_encode, help="encode WAV to MP3")
+    e.add_argument("input")
+    e.add_argument("-o", "--output")
+    e.add_argument("-b", "--bitrate", type=int, default=None,
+                   help="CBR kbps (default: active config, 128)")
+    e.add_argument("--vbr-quality", type=int, default=None,
+                   help="constant-quality VBR, 0 (best) .. 9 (smallest)")
+
+    tc = command("transcode", _cmd_transcode,
+                 help="batched MP3->MP3 re-encode at a new bitrate; PCM "
+                      "stays on the device between decode and encode")
+    tc.add_argument("input", nargs="+")
+    tc.add_argument("-d", "--out-dir", default=".")
+    tc.add_argument("-b", "--bitrate", type=int, default=None,
+                    help="target CBR kbps (default: active config, 128)")
+
     sp = command("split", _cmd_split,
-                 help="write each sentence to its own clip file (wav; mp3 "
-                      "waits on the encoder)")
+                 help="write each sentence to its own clip file (wav, or mp3 "
+                      "via ONE batched re-encode)")
     sp.add_argument("input")
     sp.add_argument("-d", "--out-dir", default=".")
     sp.add_argument("-f", "--format", choices=("wav", "mp3"), default="wav")

@@ -1,6 +1,7 @@
 """Build a native source of this package at first use: a CUDA source with
 nvcc (the kernels, loaded with ctypes by their wrappers) or the C++ host
-unpacker with g++ (loaded by bitstream/native.py).
+library with g++ (the unpacker, the encoder's row emitter and the stream mux
+in one library, loaded by bitstream/native.py).
 
 Each source in csrc/ has a plain C interface and includes no PyTorch header,
 so it compiles in seconds. The library goes to build/mp3tpu_torch/ at the root
@@ -30,6 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # every host has
 CXX_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-std=c++17", "-fPIC",
              "-Wall", "-Wextra", "-fno-exceptions", "-shared")
+# sources compiled into the library of the source that names it, as the
+# Makefile links them into one
+COMPANIONS = {"unpack.cpp": ("encode_rows.cpp", "mux_stream.cpp")}
 
 
 def nvcc_path() -> str:
@@ -71,12 +75,16 @@ def build_lock(name: str):
 
 def build(source: str, defines: tuple = ()) -> Path:
     """Compile csrc/`source` (.cu with nvcc, .cpp with g++), with the macros
-    `defines` ("NAME=VALUE") set, unless its library exists; return the
-    path. Raises with the compiler's messages when the build fails."""
+    `defines` ("NAME=VALUE") set and its COMPANIONS beside it, unless its
+    library exists; return the path. Raises with the compiler's messages
+    when the build fails."""
     src = CSRC / source
     cuda = src.suffix == ".cu"
     flags = (NVCC_FLAGS if cuda else CXX_FLAGS) + tuple(f"-D{d}" for d in defines)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    srcs = [src] + [CSRC / c for c in COMPANIONS.get(source, ())]
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for f in srcs:
+        digest.update(f.read_bytes())
     for h in sorted(CSRC.glob("*.h")):
         digest.update(h.read_bytes())
     if not cuda:
@@ -92,7 +100,7 @@ def build(source: str, defines: tuple = ()) -> Path:
         elif (compiler := cxx_path()) is None:
             raise RuntimeError(f"no g++ to build {src}")
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],
+        proc = subprocess.run([compiler, *flags, "-o", str(tmp), *map(str, srcs)],
                               capture_output=True, text=True)
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:

@@ -448,17 +448,13 @@ def split_file(path_or_bytes, out_dir, fmt: str = "wav",
     """Write each sentence/pause-delimited segment of one track to its own
     file in out_dir; returns the paths in segment order. The boundaries are
     segment_file's (one host unpack feeds the envelope scan and the
-    decode). fmt="wav" writes int16 WAV clips. fmt="mp3" re-encodes the
-    clips in one encode_batch call in the JAX package; the port has no
-    encoder yet and raises before it decodes or writes anything."""
+    decode). fmt="wav" writes int16 WAV clips. fmt="mp3" re-encodes all
+    clips in ONE encode_batch call (bitrate defaults to the active
+    EncodeConfig)."""
     from .config import get_active
     from .dsp.segment import segments_from_envelope
     if fmt not in ("wav", "mp3"):
         raise ValueError(f"fmt must be 'wav' or 'mp3', got {fmt!r}")
-    if fmt == "mp3":
-        raise NotImplementedError(
-            'split(fmt="mp3") needs encode_batch, which is not ported yet '
-            "(ROADMAP Queue 1 item 8)")
     cfg = get_active().decode
     if gapless is None:
         gapless = cfg.gapless
@@ -482,14 +478,23 @@ def split_file(path_or_bytes, out_dir, fmt: str = "wav",
         stem = ("clip" if isinstance(path_or_bytes, (bytes, bytearray))
                 else os.path.splitext(os.path.basename(str(path_or_bytes)))[0])
     os.makedirs(out_dir, exist_ok=True)
-    from .player.sink import WavFileSink
-    paths = []
-    for i, (a, b) in enumerate(segs):
-        clip = pcm[int(round(a * sr)): int(round(b * sr))]
-        paths.append(os.path.join(out_dir, f"{stem}-{i + 1:03d}.{fmt}"))
-        snk = WavFileSink(paths[-1], sr, clip.shape[1])
-        snk.push(clip)
-        snk.close()
+    clips = [pcm[int(round(a * sr)): int(round(b * sr))] for a, b in segs]
+    paths = [os.path.join(out_dir, f"{stem}-{i + 1:03d}.{fmt}")
+             for i in range(len(clips))]
+    if fmt == "mp3":
+        from .encoder import encode_batch
+        kw = {} if bitrate is None else {"bitrate": bitrate}
+        blobs = encode_batch([c.astype(np.float32) / 32768.0 for c in clips],
+                             sr, device=device, **kw)
+        for p, blob in zip(paths, blobs):
+            with open(p, "wb") as f:
+                f.write(blob)
+    else:
+        from .player.sink import WavFileSink
+        for p, c in zip(paths, clips):
+            snk = WavFileSink(p, sr, c.shape[1])
+            snk.push(c)
+            snk.close()
     return paths
 
 

@@ -34,7 +34,14 @@ class HostCopy:
     memory: sinks keep what they are pushed, and pinned memory held there
     would never go back to the allocator. .numpy(owned=False) returns the
     pinned memory itself, for a caller that slices its own copies out of it
-    and drops it."""
+    and drops it.
+
+    HostCopy.calls and HostCopy.nbytes count the copies made from a card
+    and their bytes, process-wide: what a path brought to the host is their
+    rise across it."""
+
+    calls = 0
+    nbytes = 0
 
     def __init__(self, t: torch.Tensor, overlap: bool = False):
         self._event = None
@@ -42,6 +49,8 @@ class HostCopy:
         if t.device.type != "cuda":
             self._host = t
             return
+        HostCopy.calls += 1
+        HostCopy.nbytes += t.numel() * t.element_size()
         self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         current = torch.cuda.current_stream(t.device)
         if not overlap:

@@ -121,10 +121,66 @@ def test_split(files, tmp_path):
         [os.path.basename(p) for p in want["clips"]]
     for p in got["clips"]:
         assert os.path.getsize(p) > 44
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        run(port_cli, ["split", files["bursts"], "-f", "mp3", "-d",
-                       str(tmp_path / "mp3"), "--device", "cpu"])
-    assert not (tmp_path / "mp3").exists()
+    # -f mp3: the clips re-encoded in one encode_batch call; each decodes to
+    # its WAV clip's length (the gapless tag) and sounds like it
+    mp3s = json.loads(run(port_cli, [
+        "split", files["bursts"], "-f", "mp3", "-b", "96", "-d",
+        str(tmp_path / "mp3"), "--device", "cpu"]))["clips"]
+    assert [os.path.basename(p)[:-4] for p in mp3s] == \
+        [os.path.basename(p)[:-4] for p in got["clips"]]
+    for m, w in zip(mp3s, got["clips"]):
+        pcm, sr = mp3tpu_torch.decode(m, device="cpu")
+        ref = wav_samples(w)
+        assert sr == 44100 and pcm.shape == ref.shape
+        err = pcm.astype(np.float64) - ref
+        assert 10 * np.log10((ref.astype(np.float64) ** 2).mean()
+                             / (err ** 2).mean()) > 12.0
+
+
+def wav_bytes(pcm_i16, sr):
+    import struct
+    body = np.ascontiguousarray(pcm_i16, "<i2").tobytes()
+    ch = pcm_i16.shape[1]
+    return (b"RIFF" + struct.pack("<I", 36 + len(body)) + b"WAVEfmt "
+            + struct.pack("<IHHIIHH", 16, 1, ch, sr, sr * ch * 2, ch * 2, 16)
+            + b"data" + struct.pack("<I", len(body)) + body)
+
+
+@pytest.mark.parametrize("extra", [["-b", "96"], ["--vbr-quality", "5"]],
+                         ids=["cbr", "vbr"])
+def test_encode(tmp_path, extra):
+    """`encode` writes the bytes of mp3tpu.cli's `encode` (the float64 host
+    path on the CPU) and prints its line up to the realtime factor."""
+    sig = fixtures.tonal_stereo(0.4, 44100)
+    src = tmp_path / "in.wav"
+    src.write_bytes(wav_bytes(np.round(sig * 32767).astype(np.int16), 44100))
+    want = run(jax_cli, ["encode", str(src), "-o", str(tmp_path / "j.mp3")]
+               + extra)
+    got = run(port_cli, ["encode", str(src), "-o", str(tmp_path / "p.mp3"),
+                         "--device", "cpu"] + extra)
+    assert (tmp_path / "p.mp3").read_bytes() == (tmp_path / "j.mp3").read_bytes()
+    assert got.split("(")[0].replace("p.mp3", "j.mp3") == want.split("(")[0]
+    assert got.split("(")[1].split(",")[0] == want.split("(")[1].split(",")[0]
+
+
+def test_transcode(files, tmp_path):
+    """`transcode` prints the JAX CLI's keys and writes streams that decode
+    to the inputs' lengths."""
+    argv = ["transcode", files["tonal"], files["sweep"], "-b", "96", "-d"]
+    for d in ("jax", "port"):   # as the JAX CLI, the port makes no directory
+        (tmp_path / d).mkdir()
+    want = json.loads(run(jax_cli, argv + [str(tmp_path / "jax")]))
+    got = json.loads(run(port_cli, argv + [str(tmp_path / "port"),
+                                           "--device", "cpu"]))
+    assert list(got) == list(want) == ["outputs", "wall_s"]
+    assert [os.path.basename(p) for p in got["outputs"]] == \
+        [os.path.basename(p) for p in want["outputs"]]
+    for out, jout, src in zip(got["outputs"], want["outputs"],
+                              (files["tonal"], files["sweep"])):
+        assert os.path.getsize(out) == os.path.getsize(jout)
+        pcm, _ = mp3tpu_torch.decode(out, device="cpu")
+        ref, _ = mp3tpu_torch.decode(src, device="cpu")
+        assert pcm.shape == ref.shape
 
 
 def wav_samples(path):
@@ -210,7 +266,8 @@ def test_device_defaults_to_cuda_and_is_passed_down(files, monkeypatch):
     for argv in (["decode", f, "-o", os.devnull], ["play", f],
                  ["play", f, "--segments"], ["play", f, "--normalize"],
                  ["play", f, files["sweep"]], ["practice", f],
-                 ["segments", f], ["split", f], ["loudness", f]):
+                 ["segments", f], ["split", f], ["loudness", f],
+                 ["transcode", f]):
         with pytest.raises(RuntimeError, match="(?i)device"):
             run(port_cli, argv + ["--device", "nosuchdevice"])
 
@@ -221,7 +278,8 @@ def test_help_lists_the_subcommands():
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "--device" in r.stdout
-    assert "{decode,play,info,practice,segments,split,loudness}" in r.stdout
+    assert ("{decode,play,info,practice,segments,encode,transcode,split,"
+            "loudness}") in r.stdout
 
 
 def test_console_script_is_registered():
@@ -236,11 +294,17 @@ def test_console_script_is_registered():
 
 def test_api_surface():
     for name in ("init", "decode", "decode_batch", "segment", "segment_batch",
-                 "split", "loudness", "levels", "levels_batch",
-                 "global_metrics", "play", "DecodedBatch"):
+                 "split", "loudness", "levels", "levels_batch", "encode",
+                 "encode_batch", "transcode_batch", "global_metrics", "play",
+                 "DecodedBatch"):
         assert callable(getattr(mp3tpu_torch, name)), name
+    import mp3tpu.api
+    from mp3tpu_torch import api
+    public = {n for n in vars(mp3tpu.api) if not n.startswith("_")
+              and callable(getattr(mp3tpu.api, n))}
+    assert len(public) == 14 and public <= set(vars(api))
     with pytest.raises(AttributeError):
-        mp3tpu_torch.encode
+        mp3tpu_torch.bench
 
 
 def test_init_cpu_sets_config_and_warms():

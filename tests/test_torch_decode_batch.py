@@ -49,19 +49,20 @@ def test_decode_batch_matches_jax(kinds):
 
 
 def test_decode_batch_unported_paths_raise(tmp_path):
-    """output="device" is ported; what still waits is what needs the
-    encoder or more than one process, and each names its ROADMAP item."""
+    """output="device" and the encoder are ported; what still waits is what
+    needs more than one process, and it names its ROADMAP item."""
     handle = mp3tpu_torch.decode_batch([clip("tonal")], device="cpu",
                                        output="device")
     assert isinstance(handle, mp3tpu_torch.DecodedBatch) and len(handle) == 1
     with pytest.raises(ValueError, match="output"):
         mp3tpu_torch.decode_batch([clip("tonal")], device="cpu", output="hbm")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        mp3tpu_torch.split(clip("tonal"), str(tmp_path), fmt="mp3", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         mp3tpu_torch.init(num_processes=2, device="cpu")
     for name in ("encode", "encode_batch", "transcode_batch"):
-        assert not hasattr(mp3tpu_torch, name)   # no stub that pretends
+        assert callable(getattr(mp3tpu_torch, name))
+    with pytest.raises(TypeError, match="mesh"):   # no stub that pretends
+        mp3tpu_torch.encode_batch([np.zeros(2000)], 44100, mesh=None,
+                                  device="cpu")
 
 
 @pytest.fixture

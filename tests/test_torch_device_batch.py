@@ -415,11 +415,19 @@ def test_split_wav_matches_jax_and_mp3_raises(streams, tmp_path):
                                device="cpu", stem="s", gapless=False)
     assert [os.path.basename(p) for p in clips] == \
         [f"s-{i:03d}.wav" for i in (1, 2, 3)]
-    # the encoder is not ported: refused before anything is written
+    # fmt="mp3" (it raised until the encoder was ported): the clips in one
+    # encode_batch call, each of the JAX package's size and of its WAV
+    # clip's length
     out = tmp_path / "mp3"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        mp3tpu_torch.split(str(src), str(out), fmt="mp3", device="cpu")
-    assert not out.exists()
+    mp3s = mp3tpu_torch.split(str(src), str(out), fmt="mp3", bitrate=96,
+                              device="cpu")
+    jmp3 = mp3tpu.split(str(src), str(tmp_path / "jmp3"), fmt="mp3", bitrate=96)
+    assert [os.path.basename(p) for p in mp3s] == \
+        [f"bursts-{i:03d}.mp3" for i in (1, 2, 3)]
+    for m, j, w in zip(mp3s, jmp3, got):
+        assert os.path.getsize(m) == os.path.getsize(j)
+        pcm, _ = mp3tpu_torch.decode(m, device="cpu")
+        assert pcm.size == (os.path.getsize(w) - 44) // 2
     with pytest.raises(ValueError, match="fmt"):
         mp3tpu_torch.split(str(src), str(out), fmt="ogg", device="cpu")
 

@@ -2,8 +2,8 @@
 chip_smoke.py, imports JAX, the JAX package mp3tpu (any of it) or the test
 fixtures, and a process where neither JAX nor mp3tpu can be imported
 decodes, batch-decodes (to the host and to the device-resident handle), plays,
-scans levels and segments in batches and runs the command line with the port,
-as on a GPU host without them."""
+scans levels and segments in batches, encodes, transcodes and runs the command
+line with the port, as on a GPU host without them."""
 import json
 import os
 import re
@@ -41,6 +41,10 @@ def test_port_sources_import_no_jax():
     names = {os.path.relpath(f, PORT) for f in files}
     assert {"cli.py", os.path.join("utils", "profiling.py"), "api.py",
             "transfer.py"} <= names
+    assert {os.path.join("encoder", f) for f in (
+        "__init__.py", "batch.py", "device.py", "psy_device.py",
+        "vloop_device.py", "emit_device.py", "tables.py", "mux_packed.py",
+        "native_emit.py")} <= names
     for path in files:
         for mod in imported_modules(path):
             assert not any(mod == b or mod.startswith(b + ".")
@@ -68,6 +72,16 @@ def test_decodes_without_jax(tmp_path):
         "output='device')\n"
         "assert isinstance(h, mp3tpu_torch.DecodedBatch)\n"
         "assert np.array_equal(h.numpy(0)[0], b)\n"
+        "tone = 0.4 * np.sin(np.arange(12000) / 7.0)\n"
+        "mp3 = mp3tpu_torch.encode(tone, 44100, device='cpu')\n"
+        "assert len(mp3tpu_torch.decode(mp3, device='cpu')[0]) == 12000\n"
+        "[one] = mp3tpu_torch.encode_batch([tone], 44100, device='cpu')\n"
+        "assert mp3tpu_torch.encode(tone, 44100, device='cpu', "
+        "device_loops=True) == one\n"
+        f"[tc] = mp3tpu_torch.transcode_batch([{str(src)!r}], bitrate=96, "
+        "device='cpu')\n"
+        "assert mp3tpu_torch.decode(tc, device='cpu')[0].shape == pcm.shape\n"
+        f"open({str(tmp_path / 'tc.mp3')!r}, 'wb').write(tc)\n"
         "from mp3tpu_torch import cli\n"
         f"cli.main(['info', {str(src)!r}, '--device', 'cpu'])\n"
         "assert sys.modules['jax'] is None and sys.modules['mp3tpu'] is None\n"
@@ -85,3 +99,5 @@ def test_decodes_without_jax(tmp_path):
     assert np.array_equal(np.load(tmp_path / "pcm.npy"), want)
     wantb = mp3tpu_torch.decode_batch([data], device="cpu")[0][0]
     assert np.array_equal(np.load(tmp_path / "batch.npy"), wantb)
+    [tc] = mp3tpu_torch.transcode_batch([data], bitrate=96, device="cpu")
+    assert (tmp_path / "tc.mp3").read_bytes() == tc
