@@ -7,8 +7,9 @@ Phases, each printing its numbers and its seconds on lines of its own; any
 failure raises and the script exits non-zero:
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: the port's C++ host library (csrc/unpack.cpp, encode_rows.cpp
-     and mux_stream.cpp, g++) and the CUDA kernels (csrc/fused_z.cu, nvcc),
-     both at once; the run fails if either does not build or load;
+     and mux_stream.cpp, g++) and the CUDA kernels (csrc/fused_z.cu and
+     csrc/synth.cu, one nvcc each), all at once; the run fails if any does not
+     build or load;
   3. kernel vs plain: fused_pipeline_z (C1-C5) and fused_frontend (C1-C4)
      through kernels/selfcheck.py's checks (odd pair counts, every input
      type, bit-identity across launches and batch sizes, zero pairs), then
@@ -18,7 +19,12 @@ failure raises and the script exits non-zero:
      chunked single-file decode's 36 and 18 rows of 130 granules), with the
      times (warm, and with a cold L2 from 2,048 pairs up), the bytes moved,
      the least time the card could take for them and the share of it
-     reached;
+     reached; then the synthesis kernel (C6-C7, synth_backend) through
+     selfcheck.check_synth (within tolerance of its plain version at odd
+     shapes; bit-identical PCM and state across launches, batch sizes,
+     window splits and the chunked decode's shape; zero granules) and
+     against its plain version at SYNTH_CASES, with its time, the plain
+     version's, one conv1d call's and its bound;
   4. decode_batch: 64 streams of the three 10 s clips of tests/torch_clips
      (made by mp3tpu's own encoder and committed), through
      mp3tpu_torch.decode_batch: lengths, kernel launches (one per live
@@ -33,7 +39,8 @@ failure raises and the script exits non-zero:
      device memory; once more at 256 streams (four chunks); and
      decode.d2h_segments 1 against 4, bit-identical, several times;
   6. config 3: 256 streams x 10 s decoded and resampled to 48 kHz, timed by
-     layer, stream 0 held against the same code on the CPU;
+     layer, the device phase with the synthesis kernel beside the same phase
+     with its plain version, stream 0 held against the same code on the CPU;
   7. player: the 60 s stereo track of tests/torch_clips through
      mp3tpu_torch.play: play == decode,
      seek into a later group == the slice, loop, snapshot/restore, the EQ
@@ -41,7 +48,8 @@ failure raises and the script exits non-zero:
      factors;
   8. chunked: the 60 s track through decode_symbols_chunked (rows of 128 + 2
      granules, int16 out) against decode() (at most 1 LSB, CHUNKED_EXACT
-     exact) and both against the float64 oracle; its wall and launches
+     exact; whether the two are equal sample for sample is printed) and both
+     against the float64 oracle; its wall and launches
      with decode.d2h_segments_single 1 and 2, beside decode_symbols_device
      and decode() of the same track (medians of 5);
   9. scheduler: decode_batch_streams of the 64 streams at 64 slots against
@@ -62,10 +70,22 @@ failure raises and the script exits non-zero:
      track, and 2 s of it with device_loops on and off;
  11. cli: mp3tpu_torch.cli.main in this process, on the card by default:
      info, decode (the WAV equals decode()), loudness, segments, split (WAV
-     and MP3 clips), transcode, play --loop to a WAV.
+     and MP3 clips), transcode, play --loop to a WAV;
+ 12. multichip: 8 streams of about 1 s, sharded over a mesh of every GPU
+     present and over a mesh of two shards on cuda:0: one window of the
+     granule chain (float32 PCM and state bit for bit the unsharded call's),
+     the packed 4-bit arenas -> window loop -> resample to 48 kHz step
+     against the unsharded step, a peak reduced over the shards, one sharded
+     encode_batch byte for byte the unsharded one; then torch.distributed:
+     a group of one rank under NCCL (gather and all-reduce as identities),
+     and two ranks under gloo, spawned as child processes of this script
+     that meet on a loopback port and share cuda:0, each decoding and
+     encoding its rank_slice, their gathers held to the single-process
+     results.
 The kernels' JSON record gives each kernel's launches in the runs of
 decode_batch, the device-resident batch, the full play, the chunked decode,
-the scheduler and the transcode, each counted from 0 just before the run,
+the scheduler, the transcode and the sharded steps, each counted from 0 just
+before the run,
 and apart from them the calls of the kernel phase. The line before the last is the card's;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
 nothing of mp3tpu (the JAX package); needs no LAME.
@@ -81,6 +101,11 @@ row-block sizes, and device_loops on against off by stream length.
     python3 chip_smoke.py --encode
 
 instead runs only the encode phase (11), after the build.
+
+    python3 chip_smoke.py --kernel
+
+instead runs only the kernel phase (3), after the build: the quickest check
+that every kernel builds, launches and agrees with its plain version.
 
     python3 chip_smoke.py --variants
 
@@ -142,7 +167,9 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
 
 def _wrappers() -> dict:
     from mp3tpu_torch.kernels import fused_z as fz
-    return {"fused_z": fz.fused_pipeline_z, "fused_frontend": fz.fused_frontend}
+    from mp3tpu_torch.kernels import synth as sy
+    return {"fused_z": fz.fused_pipeline_z, "fused_frontend": fz.fused_frontend,
+            "synth": sy.synth_backend}
 
 
 def zero_counts() -> None:
@@ -186,11 +213,11 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
-    """The C++ unpacker and the CUDA library, built at once; raises if
-    either does not build or load."""
+    """The C++ unpacker and the two CUDA libraries, built at once; raises if
+    any does not build or load."""
     from concurrent.futures import ThreadPoolExecutor
     from mp3tpu_torch.bitstream import native
-    from mp3tpu_torch.kernels import build, fused_z
+    from mp3tpu_torch.kernels import build, fused_z, synth
 
     def timed_build(fn):
         t0 = time.perf_counter()
@@ -199,15 +226,18 @@ def phase_build() -> None:
     nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     log(f"build: {nvcc[-1]}")
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         unpacker = ex.submit(timed_build, native._load)
         kernels = ex.submit(timed_build, fused_z._library)
+        synthesis = ex.submit(timed_build, synth._library)
         lib, s_unpack = unpacker.result()
         _, s_cuda = kernels.result()
+        _, s_synth = synthesis.result()
     if lib is None:
         raise RuntimeError("the C++ unpacker did not load (MP3TPU_NO_NATIVE "
                            "set, or no g++)")
-    for src, s in (("unpack.cpp", s_unpack), ("fused_z.cu", s_cuda)):
+    for src, s in (("unpack.cpp", s_unpack), ("fused_z.cu", s_cuda),
+                   ("synth.cu", s_synth)):
         path = build.build(src)
         log(f"build: {src} {s:.2f} s -> {os.path.relpath(path, ROOT)}")
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -313,11 +343,102 @@ def phase_kernel(clips: dict, card: str):
                 "max_abs_err": err, "worst_over_tol": worst, "ms": ms,
                 "ms_cold_l2": cold, "plain_ms": plain_ms,
                 "bound_ms": b["bound_us"] / 1e3, "bound_by": b["bound_by"],
-                "library_ms": None, "bytes": b["bytes"],
+                "library_ms": None, "library_covers": None,
+                "library_whole_ms": None, "bytes": b["bytes"],
                 "bound_us": b["bound_us"],
                 "bound_share": share_cold if cold else share,
                 "bound_share_warm_l2": share})
+    rec["synth"] = synth_cases(tables, card)
     return rec, read_counts()
+
+
+# the synthesis kernel's shapes: (S rows of G granules, the path)
+SYNTH_CASES = (
+    (1, WIN, "player"),
+    (64, WIN, "decode_batch, scheduler, transcode"),
+    (256, WIN, "config 3"),
+    (36, CHUNK_G, "chunked single-file decode"),
+)
+
+
+def synth_cases(tables, card: str) -> list:
+    """The synthesis kernel (csrc/synth.cu) through selfcheck.check_synth,
+    then against its plain version (unfold + one matmul) at SYNTH_CASES,
+    with its time, the plain version's, the time of one conv1d call that
+    computes the FIR alone from the overlap-added sequence, and the time of
+    the whole function through torch ops around that conv1d (yardsticks timed
+    here and used nowhere in the port), beside its bound."""
+    from mp3tpu_torch.kernels import selfcheck as sc
+    from mp3tpu_torch.kernels import synth as sy
+    t0 = time.perf_counter()
+    sc.check_synth(tables, log=log)
+    log(f"check synth: passed in {time.perf_counter() - t0:.2f} s")
+    weight = tables.synth_w.reshape(32, 16, 32).permute(2, 0, 1).contiguous()
+    out = []
+    for S, G, path in SYNTH_CASES:
+        z, st = sc.random_z(S, G, seed=S)
+        at = f"S={S} G={G} ({path})"
+        want = sy.synth_backend_reference(z, st, tables)
+        err, scale, worst = sc.compare_synth(sy.synth_backend(z, st, tables),
+                                             want, at)
+        torch.cuda.synchronize()
+        log(f"kernel synth {at}: max |d| {err:.6g}, max |pcm| {scale:.6g}; "
+            f"worst row at {worst:.3g} of its tol (REL_TOL {sc.REL_TOL:g} of the "
+            f"row's max |pcm|); new state bit-identical to plain")
+        # the library call: conv1d over full = hist ++ seq, made beforehand
+        tails = torch.cat([st["overlap"][:, None], z[:, :-1, :, :, 18:]], dim=1)
+        seq = ((z[..., :18] + tails) * tables.inv_mask).permute(0, 2, 1, 4, 3)
+        full = torch.cat([st["hist"], seq.reshape(S, 2, G * 18, 32)], dim=2)
+        x = full.reshape(S * 2, 15 + G * 18, 32).transpose(1, 2).contiguous()
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib = torch.nn.functional.conv1d(x, weight)
+            lib_err = float((lib.transpose(1, 2).reshape(S, 2, -1).transpose(1, 2)
+                             - want[0]).abs().max())
+            library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(x, weight))
+
+            def whole():
+                """The whole function through torch ops around the conv1d:
+                overlap-add, mask, hist, layouts, PCM and the new state."""
+                ta = torch.cat([st["overlap"][:, None], z[:, :-1, :, :, 18:]], dim=1)
+                sq = ((z[..., :18] + ta) * tables.inv_mask).permute(0, 2, 1, 4, 3)
+                fu = torch.cat([st["hist"], sq.reshape(S, 2, G * 18, 32)], dim=2)
+                y = torch.nn.functional.conv1d(
+                    fu.reshape(S * 2, 15 + G * 18, 32).transpose(1, 2), weight)
+                pcm = y.transpose(1, 2).reshape(S, 2, -1).transpose(1, 2).contiguous()
+                return pcm, {"overlap": z[:, -1, :, :, 18:].contiguous(),
+                             "hist": fu[:, :, -15:].contiguous()}
+
+            got = whole()
+            sc.compare_synth(got, want, at + ", the conv1d route")
+            library_whole_ms = cuda_ms(whole)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        del tails, seq, full, x, lib, got
+        b = sc.synth_bound(z)
+        ms = cuda_ms(lambda: sy.synth_backend(z, st, tables))
+        plain_ms = cuda_ms(lambda: sy.synth_backend_reference(z, st, tables))
+        share = b["bound_us"] / (1e3 * ms)
+        log(f"kernel synth {at}: {ms:.4f} ms ({100 * share:.1f}% of the bound), "
+            f"plain (unfold + matmul) {plain_ms:.4f} ms, one conv1d call on the "
+            f"overlap-added sequence {library_ms:.4f} ms (max |d| {lib_err:.3g} "
+            f"from plain; TF32 off; the FIR alone), the whole function through "
+            f"torch ops around that conv1d {library_whole_ms:.4f} ms "
+            f"(medians of 7 x 10 calls); {b['bytes']} "
+            f"bytes, {b['flops']} float32 operations, bound {b['bound_us']:.2f} "
+            f"us by {b['bound_by']} ({card})")
+        out.append({
+            "S": S, "G": G, "types": "float32", "used_by": path,
+            "max_abs_err": err, "worst_over_tol": worst, "ms": ms,
+            "ms_cold_l2": None, "plain_ms": plain_ms,
+            "bound_ms": b["bound_us"] / 1e3, "bound_by": b["bound_by"],
+            "library_ms": library_ms,
+            "library_covers": "the FIR only: conv1d on hist ++ seq made beforehand",
+            "library_whole_ms": library_whole_ms, "bytes": b["bytes"],
+            "bound_us": b["bound_us"], "bound_share": share,
+            "bound_share_warm_l2": share})
+    return out
 
 
 # csrc/fused_z.cu's measurement variants: (name, macros)
@@ -384,7 +505,7 @@ def phase_decode_batch(clips: dict):
     launches = read_counts()
     log(f"decode_batch: 64 streams x {CLIP_S:g} s in {wall:.3f} s "
         f"(first call, builds included), launches {launches}")
-    if launches["fused_z"] <= 0:
+    if min(launches["fused_z"], launches["synth"]) <= 0:
         raise AssertionError("decode_batch did not go through the kernel")
     n_win = -(-max(st.n_granules for st, _ in syms.values()) // WIN)
     bucket = 1 << (n_win - 1).bit_length()
@@ -498,7 +619,7 @@ def phase_device_batch(clips: dict, batch: list, fast: list, card: str) -> dict:
         batch, device="cuda", output="device"))
     launches = read_counts()
     peak_decode = torch.cuda.max_memory_allocated()
-    if launches["fused_z"] <= 0:
+    if min(launches["fused_z"], launches["synth"]) <= 0:
         raise AssertionError('output="device" did not go through the kernel')
     if not isinstance(handle, mp3tpu_torch.DecodedBatch) or len(handle) != 64:
         raise AssertionError("no DecodedBatch of 64 streams")
@@ -626,12 +747,14 @@ def phase_device_batch(clips: dict, batch: list, fast: list, card: str) -> dict:
     return launches
 
 
-# The chunked decode against decode(): both float32, the 512-term synthesis
-# product summed by cuBLAS at two shapes ([rows * 2 * 2340, 512] against
-# [1152, 512]), so a sample within 1e-2 LSB of a rounding boundary can land
-# on either side. On the CPU the two are equal sample for sample
-# (tests/test_torch_chunked.py holds 99.9% there).
-CHUNKED_EXACT = 0.998
+# The chunked decode against decode(): the reference's contract
+# (tests/test_faults.py: at most 1 LSB, over 99.9% exact). Both routes go
+# through the same two kernels, whose sums have one order whatever the call's
+# shape (rows of 130 granules here, windows of 32 in decode()), and a row's
+# 2-granule halo gives its first kept sample the inputs it has in the whole
+# stream: so the two are expected to be equal sample for sample, which is
+# printed, and held to the contract.
+CHUNKED_EXACT = 0.999
 
 
 def phase_chunked(track: bytes, card: str) -> dict:
@@ -670,17 +793,19 @@ def phase_chunked(track: bytes, card: str) -> dict:
             log(f"chunked: {st.n_granules} granules as {rows} rows of {CHUNK_G}, "
                 f"d2h_segments_single={k}: launches {launches[k]}, max |d| "
                 f"{int(d.max())} LSB, exact {exact:.6f} against decode() "
-                f"(held to {CHUNKED_EXACT}; over 0.999: {exact > 0.999})")
-            if got.shape != ref.shape or d.max() > 1 or exact < CHUNKED_EXACT:
+                f"(held to over {CHUNKED_EXACT}); equal sample for sample, "
+                f"each row's halo granules dropped: {bool((d == 0).all())} "
+                f"({int((d != 0).sum())} of {d.size} samples differ)")
+            if got.shape != ref.shape or d.max() > 1 or exact <= CHUNKED_EXACT:
                 raise AssertionError("chunked decode outside 1 LSB / "
                                      f"{CHUNKED_EXACT} exact")
             compare_i16(got[:n_or], oracle[:n_or],
                         f"chunked (K={k}) vs the float64 oracle, first "
                         f"{n_or / SR:.1f} s")
             calls = k if rows >= 2 * k and rows % k == 0 else 1
-            if launches[k]["fused_z"] != calls:
+            if (launches[k]["fused_z"], launches[k]["synth"]) != (calls, calls):
                 raise AssertionError(f"chunked decode: {launches[k]} launches, "
-                                     f"expected {calls}")
+                                     f"expected {calls} of each kernel")
             walls[k] = median_s(chunked)
     finally:
         set_active(resolve())
@@ -777,7 +902,7 @@ def phase_cli(clips: dict, track: bytes, card: str) -> None:
         launches = read_counts()
         log(f"cli play --loop 21.3:23.8 --times 2: two equal copies of {n} "
             f"samples; the phase's launches {launches} ({card})")
-        if launches["fused_z"] <= 0:
+        if min(launches["fused_z"], launches["synth"]) <= 0:
             raise AssertionError("the cli did not go through the kernel")
 
 
@@ -1059,7 +1184,7 @@ def phase_encode(clips: dict, track: bytes, batch: list, fast: list,
     launches = read_counts()
     crossed = HostCopy.nbytes - bytes0
     peak_tc = torch.cuda.max_memory_allocated()
-    if launches["fused_z"] <= 0:
+    if min(launches["fused_z"], launches["synth"]) <= 0:
         raise AssertionError("transcode_batch did not go through the kernel")
     if crossed >= pcm_bytes // 4:
         raise AssertionError(f"transcode_batch copied {crossed} bytes to the "
@@ -1179,6 +1304,29 @@ def phase_config3(clips: dict, card: str) -> None:
     log(f"config3: aggregate realtime factor {audio_s / wall:.1f}x, "
         f"device-only {audio_s / t_dev:.1f}x ({card})")
 
+    # the device phase with the synthesis kernel against the same phase with
+    # its plain version (unfold + one matmul), in turns within this call
+    from mp3tpu_torch.kernels import synth as sy
+    routes = {"kernel": sy.synth_backend, "plain": sy.synth_backend_reference}
+    walls = {name: [] for name in routes}
+    try:
+        for name in ("plain", "kernel", "plain", "plain", "kernel"):
+            kp.synth_backend = routes[name]
+            t0 = time.perf_counter()
+            other, _, _ = device(dev)
+            walls[name].append(time.perf_counter() - t0)
+            d = (other.int() - pcm16.int()).abs()
+            if d.max() > 1 or float((d == 0).float().mean()) < 0.98:
+                raise AssertionError(f"config3: the {name} synthesis differs "
+                                     "beyond 1 LSB / 98% exact")
+    finally:
+        kp.synth_backend = sy.synth_backend
+    log(f"config3: device phase with the synthesis kernel "
+        f"{walls['kernel'][0]:.4f} / {walls['kernel'][1]:.4f} s, with its plain "
+        f"version (unfold + matmul) {walls['plain'][1]:.4f} / "
+        f"{walls['plain'][2]:.4f} s (after one untimed plain run; kernel, "
+        f"plain, plain, kernel) ({card})")
+
     ref, _, _ = kp.decode_all_windows_flat_resampled_i16(
         *(torch.from_numpy(np.ascontiguousarray(planes[k][:, :1]))
           for k in ("is12", "exp", "esc", "bt", "mx", "smode")),
@@ -1239,7 +1387,7 @@ def phase_player(track: bytes, card: str) -> dict:
     launches = read_counts()
     log(f"player: full play {audio_s:.2f} s in {wall:.4f} s, realtime factor "
         f"{audio_s / wall:.1f}x; launches {launches} ({card})")
-    if launches["fused_z"] <= 0:
+    if min(launches["fused_z"], launches["synth"]) <= 0:
         raise AssertionError("play did not go through the kernel")
     if not np.array_equal(p.sink.pcm, ref):
         raise AssertionError("play() is not bit-identical to decode")
@@ -1331,7 +1479,7 @@ def phase_scheduler(batch: list, fast: list, card: str) -> dict:
     log(f"scheduler: 64 streams x {CLIP_S:g} s at 64 slots in {wall:.4f} s, "
         f"aggregate realtime factor {audio_s / wall:.1f}x; launches "
         f"{launches} ({card})")
-    if launches["fused_z"] <= 0:
+    if min(launches["fused_z"], launches["synth"]) <= 0:
         raise AssertionError("the scheduler did not go through the kernel")
     compare_i16(np.concatenate([p for p, _ in out]),
                 np.concatenate([p for p, _ in fast]),
@@ -1360,6 +1508,250 @@ def phase_scheduler(batch: list, fast: list, card: str) -> dict:
                 "decode_batch use_native=False (scheduler) vs fast path, 6 streams")
     log(f"scheduler: decode_batch use_native=False, 6 streams in {wall:.3f} s "
         f"(pure-Python unpack; {card})")
+    return launches
+
+
+# ---------------------------------------------------------------- multichip
+
+MC_STREAMS = 8
+MC_WIN = 8
+MC_GRANULES = 80            # granules of a cut clip: about 1 s at 44.1 kHz
+
+
+def mc_batch(clips: dict) -> list:
+    names = list(clips)
+    return [clips[names[i % len(names)]] for i in range(MC_STREAMS)]
+
+
+def mc_tones() -> list:
+    """8 float32 streams of 1 s: a tone and noise each, from a seed."""
+    rng = np.random.default_rng(3)
+    t = np.arange(SR) / SR
+    return [(0.3 * np.sin(2 * np.pi * (260 + 45 * i) * t)
+             + 0.02 * rng.standard_normal(len(t))).astype(np.float32)
+            for i in range(MC_STREAMS)]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multichip_rank(rank: int, port: str, work: str) -> int:
+    """One of the two gloo ranks (a child process of phase_multichip): joins
+    the group, decodes and encodes its rank_slice on cuda:0, gathers; rank 0
+    writes what it gathered to `work`."""
+    import mp3tpu_torch
+    from mp3tpu_torch import parallel as par
+    mp3tpu_torch.init(sample_rates=(), distributed_coordinator=f"127.0.0.1:{port}",
+                      num_processes=2, process_id=rank, device="cuda",
+                      distributed_backend="gloo")
+    zero_counts()
+    batch = mc_batch(read_clips())
+    sl = par.rank_slice(len(batch))
+    mine = mp3tpu_torch.decode_batch(batch[sl], device="cuda")
+    pcm = par.gather_to_host0(np.concatenate([p for p, _ in mine]))
+    lens = par.gather_to_host0([len(p) for p, _ in mine])
+    tones = mc_tones()
+    blobs = par.gather_to_host0(mp3tpu_torch.encode_batch(
+        tones[par.rank_slice(len(tones))], SR, bitrate=128, device="cuda"))
+    mean = par.allreduce_metric(float(rank + 1))
+    launches = par.gather_to_host0([read_counts()])
+    if rank == 0:
+        np.save(os.path.join(work, "pcm.npy"), pcm)
+        with open(os.path.join(work, "mp3.bin"), "wb") as f:
+            f.write(b"".join(blobs))
+        with open(os.path.join(work, "out.json"), "w") as f:
+            json.dump({"lens": lens, "sizes": [len(b) for b in blobs],
+                       "mean": mean, "launches": launches,
+                       "slice": [sl.start, sl.stop]}, f)
+    par.shutdown_distributed()
+    log(f"multichip rank {rank}: streams [{sl.start}, {sl.stop}) on "
+        f"{torch.cuda.get_device_name(0)}, launches {read_counts()}")
+    return 0
+
+
+def phase_multichip(clips: dict, card: str) -> dict:
+    """The sharded decode and encode steps over a mesh of every GPU present
+    and over two shards on cuda:0, and torch.distributed at one rank (NCCL)
+    and two (gloo, child processes). Returns the kernels' launches in the
+    sharded steps of this process."""
+    import tempfile
+    import mp3tpu_torch
+    from mp3tpu_torch import parallel as par
+    from mp3tpu_torch.kernels import pipeline as kp
+    from mp3tpu_torch.container import frames as fr
+    from mp3tpu_torch.pipeline import (load_symbols, probe_granules, stream_meta,
+                                       unpack_planes)
+    S, win = MC_STREAMS, MC_WIN
+    cuda0 = torch.device("cuda", 0)
+    meshes = {"every GPU": par.make_stream_mesh(),
+              "two shards on cuda:0": par.StreamMesh((cuda0, cuda0))}
+    log(f"multichip: meshes {({k: [str(d) for d in m.devices] for k, m in meshes.items()})}")
+
+    # one window of the granule chain, float32: the kernels' sums do not
+    # depend on the rows beside them, so sharded equals unsharded bit for bit
+    sts = [load_symbols(c)[0] for c in clips.values()]
+    sym = tuple(np.stack([a[7 * (s // 3): 7 * (s // 3) + WIN] for s in range(S)
+                          for a in [getattr(sts[s % 3], f)]])
+                for f in ("is_", "exp", "block_type", "mixed", "smode"))
+    state0 = kp.init_state(S, device="cuda")
+    ref_pcm, ref_state = kp.decode_window(
+        *(torch.from_numpy(a).cuda() for a in sym), state0, SR)
+
+    # the packed 4-bit arenas -> window loop -> resample to 48 kHz
+    def head(data: bytes) -> bytes:
+        """The clip cut behind its tag frame and MC_GRANULES // 2 audio
+        frames."""
+        index = fr.scan_frames(np.frombuffer(data, np.uint8))
+        return data[: int(index.offsets[MC_GRANULES // 2 + 1])]
+
+    bodies = [stream_meta(head(clips[n]))[0]
+              for n in ("tonal", "transients")] * (S // 2)
+    G = probe_granules(bodies[0])
+    got = unpack_planes(bodies, [probe_granules(b) for b in bodies], S, win,
+                        plane_bits=4)
+    if got is None or got[2:] != (4, True):
+        raise AssertionError("multichip: the clips leave the 4-bit plane family")
+    planes = got[0]
+    n_win = planes["bt"].shape[0]
+
+    def step(pl: dict, dev):
+        """One shard's arenas (one H2D), split, decoded and resampled."""
+        s = pl["bt"].shape[1]
+        arenas = torch.from_numpy(kp.pack_window_arenas(pl, s, win)).to(dev)
+        parts = [kp._split_window_arena(arenas[w], s, win) for w in range(n_win)]
+        x = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+        return kp.decode_all_windows_flat_resampled_i16(
+            x["is12"], x["exp"], x["esc"], x["bt"], x["mx"], x["smode"],
+            kp.init_state(s, device=dev), kp.init_resample_state(s, SR, device=dev),
+            SR, 48000, plane_bits=4)
+
+    ref, _, ref_rs = step(planes, cuda0)
+    ref_peak = float(ref.int().abs().max())
+    if ref_peak == 0 or ref.shape[0] != S or ref.shape[2] != 2:
+        raise AssertionError(f"multichip: unsharded step gave {tuple(ref.shape)}, "
+                             f"peak {ref_peak}")
+    # the unsharded references stand: from here to read_counts() every launch
+    # is a sharded step's
+    zero_counts()
+    for name, mesh in meshes.items():
+        pcm, state = par.sharded_decode_step(mesh, kp.decode_window, sym,
+                                             (state0,), SR)
+        if not (torch.equal(pcm, ref_pcm) and torch.equal(state["hist"], ref_state["hist"])
+                and torch.equal(state["overlap"], ref_state["overlap"])):
+            raise AssertionError(f"multichip ({name}): the sharded window's "
+                                 "float32 PCM or state differs from the unsharded")
+    log(f"multichip: decode_window of {S} streams x {WIN} granules, sharded over "
+        f"each mesh: float32 PCM and state bit for bit the unsharded call's")
+    for name, mesh in meshes.items():
+        outs = [step({k: np.ascontiguousarray(v[:, sl]) for k, v in planes.items()}, dev)
+                if sl.stop > sl.start else None
+                for dev, sl in zip(mesh.devices, par.stream_sharding(mesh).slices(S))]
+        pcm16, _state, rs = par.unshard(outs, device=cuda0)
+        d = (pcm16.int() - ref.int()).abs()
+        exact = float((d == 0).float().mean())
+        peak = par.reduce_shards([o[0].int().abs().max() for o in outs if o], "max")
+        log(f"multichip ({name}): {S} streams x {G} granules, {n_win} windows of "
+            f"{win}, resampled to 48 kHz {tuple(pcm16.shape)}: bit for bit the "
+            f"unsharded step: {bool((d == 0).all())} (max |d| {int(d.max())} LSB, "
+            f"exact {exact:.6f}); resample history equal: "
+            f"{torch.equal(rs, ref_rs)}; peak over the shards {peak:.0f} "
+            f"(unsharded {ref_peak:.0f})")
+        if pcm16.shape != ref.shape or d.max() > 1 or exact <= 0.999:
+            raise AssertionError(f"multichip ({name}): sharded step outside 1 LSB "
+                                 "/ 99.9% exact of the unsharded")
+        if peak != ref_peak:
+            raise AssertionError(f"multichip ({name}): peak {peak} != {ref_peak}")
+        mean = par.allreduce_metric(1234.5, mesh)
+        if abs(mean - 1234.5) > 1e-3:
+            raise AssertionError(f"multichip ({name}): allreduce_metric {mean}")
+    launches = read_counts()
+    # a shard launches each kernel once in the single window and once a
+    # window of the arenas step
+    shards = sum(sl.stop > sl.start for mesh in meshes.values()
+                 for sl in par.stream_sharding(mesh).slices(S))
+    if not launches["fused_z"] == launches["synth"] == (1 + n_win) * shards:
+        raise AssertionError(f"multichip: {shards} shards of 1 + {n_win} windows "
+                             f"launched {launches}")
+
+    # one sharded encode_batch
+    tones = mc_tones()
+    enc_ref, wall = timed_s(lambda: mp3tpu_torch.encode_batch(
+        tones, SR, bitrate=128, device="cuda"))
+    for name, mesh in meshes.items():
+        enc, w = timed_s(lambda: mp3tpu_torch.encode_batch(
+            tones, SR, bitrate=128, mesh=mesh))
+        same = [a == b for a, b in zip(enc, enc_ref)]
+        log(f"multichip ({name}): sharded encode_batch of {S} x 1 s at 128 kbps: "
+            f"{sum(same)} of {S} streams byte-identical to the unsharded call "
+            f"({sum(map(len, enc))} bytes; {w:.3f} s against {wall:.3f} s "
+            f"unsharded; {card})")
+        if len(enc) != S or not all(same):
+            raise AssertionError(f"multichip ({name}): a stream's bytes depend on "
+                                 f"its shard: {same}")
+
+    # torch.distributed: one rank under NCCL, the collectives as identities
+    par.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        import torch.distributed as dist
+        backend = dist.get_backend()
+        x16 = ref[:, :1000].contiguous()
+        ok = (backend == "nccl" and par.rank_slice(S) == slice(0, S)
+              and torch.equal(par.gather_to_host0(x16), x16)
+              and np.array_equal(par.gather_to_host0(x16.cpu().numpy()),
+                                 x16.cpu().numpy())
+              and par.gather_to_host0(enc_ref) == enc_ref
+              and par.allreduce_metric(2.5) == 2.5
+              and par.reduce_shards([torch.tensor(7.0, device="cuda")], "max") == 7.0)
+    finally:
+        par.shutdown_distributed()
+    log(f"multichip: one rank under {backend}: rank_slice, gather_to_host0 (CUDA "
+        f"int16 tensor, numpy, bytes) and the reductions are identities: {ok}")
+    if not ok:
+        raise AssertionError("multichip: a collective of one rank is no identity")
+
+    # two ranks under gloo, both on cuda:0 (NCCL wants a card per rank)
+    batch = mc_batch(clips)
+    single = mp3tpu_torch.decode_batch(batch, device="cuda")
+    with tempfile.TemporaryDirectory() as work:
+        port = str(free_port())
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multichip-rank",
+             str(r), port, work], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.splitlines()[-6:]:
+                log(f"  rank {r}: {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"multichip: rank {r} exited {p.returncode}")
+        with open(os.path.join(work, "out.json")) as f:
+            res = json.load(f)
+        pcm = np.load(os.path.join(work, "pcm.npy"))
+        with open(os.path.join(work, "mp3.bin"), "rb") as f:
+            mp3 = f.read()
+    if not (res["slice"] == [0, S // 2]
+            and res["lens"] == [len(p) for p, _ in single]
+            and np.array_equal(pcm, np.concatenate([p for p, _ in single]))
+            and res["sizes"] == [len(b) for b in enc_ref]
+            and mp3 == b"".join(enc_ref) and res["mean"] == 1.5
+            and all(min(c["fused_z"], c["synth"]) > 0 for c in res["launches"])):
+        raise AssertionError(f"multichip: the two ranks' gathers differ from the "
+                             f"single-process results: {res}")
+    log(f"multichip: two gloo ranks on cuda:0 in {time.perf_counter() - t0:.2f} s: "
+        f"gathered int16 PCM of {S} streams ({pcm.shape[0]} samples) and {S} MP3s "
+        f"({len(mp3)} bytes) equal to the single-process results; metric mean "
+        f"{res['mean']}; launches per rank {res['launches']} ({card})")
     return launches
 
 
@@ -1505,6 +1897,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import mp3tpu_torch  # noqa: F401  (fails outside the repository)
 
+    if sys.argv[1:2] == ["--multichip-rank"]:
+        return multichip_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     card = timed("environment", phase_environment)
     timed("build", phase_build)
     if sys.argv[1:] == ["--profile"]:
@@ -1514,6 +1908,9 @@ def main() -> int:
         variants_main(card)
         return 0
     clips = timed("clips", read_clips)
+    if sys.argv[1:] == ["--kernel"]:
+        timed("kernel", phase_kernel, clips, card)
+        return 0
     if sys.argv[1:] == ["--encode"]:
         import mp3tpu_torch
         names = list(clips)
@@ -1536,15 +1933,19 @@ def main() -> int:
     paths["transcode"] = timed("encode", phase_encode, clips, track, batch,
                                fast, card)
     timed("cli", phase_cli, clips, track, card)
+    paths["multichip"] = timed("multichip", phase_multichip, clips, card)
 
-    # each kernel's launches in the five paths' runs, each counted from 0;
-    # the kernel phase's calls apart. No path calls fused_frontend (nor its
-    # TPU kernel, in the JAX package), so its path launches read 0.
+    # each kernel's launches in the paths' runs, each counted from 0; the
+    # kernel phase's calls apart. No path calls fused_frontend (nor its TPU
+    # kernel, in the JAX package), so its path launches read 0.
     # Times, errors and bounds at the shape and types of the decode_batch
-    # run counted above (64 streams x 32 granules, widened planes: int32
+    # run counted above (64 streams x 32 granules; widened planes: int32
     # spectrum, int16 exponents); every case of the kernel phase in "cases".
     replaces = {"fused_z": "src/mp3tpu/kernels/pallas_fused.py:237",
-                "fused_frontend": "src/mp3tpu/kernels/pallas_fused.py:72"}
+                "fused_frontend": "src/mp3tpu/kernels/pallas_fused.py:72",
+                "synth": "src/mp3tpu/kernels/pipeline.py:192 (jnp, no Pallas "
+                         "kernel)"}
+    sources = {"synth": "src/mp3tpu_torch/csrc/synth.cu"}
     kernels = []
     for name, rep in replaces.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -1552,11 +1953,12 @@ def main() -> int:
             raise AssertionError(f"{name}: the kernel phase did not launch it")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "src/mp3tpu_torch/csrc/fused_z.cu", "replaces": rep,
+            "source": sources.get(name, "src/mp3tpu_torch/csrc/fused_z.cu"),
+            "replaces": rep,
             "launches": sum(by_path.values()), "paths": by_path,
             "check_calls": check_calls[name],
             **next(c for c in krec[name]
-                   if c["S"] == 64 and c["types"] == "int32/int16"),
+                   if c["S"] == 64 and c["types"] in ("int32/int16", "float32")),
             "cases": [{k: c[k] for k in ("S", "G", "types", "used_by", "ms",
                                          "ms_cold_l2", "bound_us", "bound_share")}
                       for c in krec[name]]})

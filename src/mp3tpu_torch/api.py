@@ -9,9 +9,10 @@ from __future__ import annotations
 def init(config=None, sample_rates=(44100,), n_streams: int = 1,
          distributed_coordinator: str | None = None,
          num_processes: int | None = None, process_id: int | None = None,
-         device="cuda"):
-    """Bring-up: make `config` (default: config.resolve()) the active
-    config, build the tables of each sample rate on `device`, and run the
+         device="cuda", distributed_backend: str | None = None):
+    """Bring-up: join the process group of a multi-process run when asked,
+    make `config` (default: config.resolve()) the active config, build the
+    tables of each sample rate on `device`, and run the
     decode once on zeros at the shapes the entry points use: the
     single-stream group of windows that decode and the player run and, for
     n_streams > 1, the scheduler's [n_streams, window] step. On the card
@@ -20,17 +21,40 @@ def init(config=None, sample_rates=(44100,), n_streams: int = 1,
     unpacker (both cached under build/mp3tpu_torch/ afterwards), the CUDA
     context, cuBLAS's handles and the first launches.
 
-    The distributed_* arguments are accepted as the JAX package accepts
-    them: with one process they do nothing; more than one is the sharded
-    path, which is not ported yet. Returns the config."""
+    distributed_coordinator ("host:port" of rank 0), num_processes and
+    process_id go to parallel.init_distributed: with no coordinator and one
+    process they do nothing; else the process joins a torch.distributed
+    group (NCCL when `device` is a card, gloo on the CPU, or what
+    distributed_backend names: ranks that share one card take "gloo"), after
+    which
+    parallel.rank_slice gives this rank's streams and gather_to_host0 and
+    allreduce_metric talk over the group. If joining fails, the error
+    propagates and the active config stays as it was; if a later step fails
+    (a build, a bad config), the active config is put back and the group this
+    call made is left again, so that init can be called anew. Returns the config."""
+    from .config import get_active, set_active
+    from .parallel.distributed import init_distributed, shutdown_distributed
+    import torch.distributed as dist
+    stood = dist.is_available() and dist.is_initialized()
+    init_distributed(distributed_coordinator, num_processes, process_id,
+                     device=device, backend=distributed_backend)
+    before = get_active()
+    try:
+        return _bring_up(config, sample_rates, n_streams, device)
+    except BaseException:
+        # leave nothing of this call behind, so that init can be called anew
+        set_active(before)
+        if not stood:
+            shutdown_distributed()
+        raise
+
+
+def _bring_up(config, sample_rates, n_streams, device):
+    """init behind the process group: the active config and the warm-up."""
     import torch
     from .config import resolve, set_active
     from .kernels import pipeline as kp
     from .pipeline import GROUP_WINDOWS, _native_lib
-    if num_processes not in (None, 1):
-        raise NotImplementedError(
-            f"init(num_processes={num_processes}): the multi-process path "
-            "(parallel/) is not ported yet (ROADMAP Queue 1 item 9)")
     cfg = config if config is not None else resolve()
     set_active(cfg)  # decode/player/scheduler defaults now come from cfg
     if cfg.decode.use_native:
@@ -126,13 +150,15 @@ def encode(pcm, sample_rate, device="cuda", **kw):
     return encode_pcm(pcm, sample_rate, device=device, **kw)
 
 
-def encode_batch(pcms, sample_rate=None, device="cuda", **kw):
+def encode_batch(pcms, sample_rate=None, device=None, mesh=None, **kw):
     """Batched multi-stream encode (SURVEY.md §3.4, the encoder's
     aggregate-throughput path): spectra stay on the device from the
     analysis transform through the rate loops. Also accepts a
-    DecodedBatch handle (see transcode_batch)."""
+    DecodedBatch handle (see transcode_batch). device: "cuda" unless given.
+    mesh (parallel.make_stream_mesh) splits the streams over its shards, each
+    encoded on its own device; the bytes are those of the unsharded call."""
     from .encoder import encode_batch as _impl
-    return _impl(pcms, sample_rate, device=device, **kw)
+    return _impl(pcms, sample_rate, device=device, mesh=mesh, **kw)
 
 
 def transcode_batch(paths, bitrate=None, device="cuda", **kw) -> list:

@@ -140,7 +140,8 @@ def encode_batch(pcms, sample_rate: int | None = None,
                  short_blocks: bool | None = None,
                  joint_stereo: bool | None = None,
                  noise_shaping: bool | None = None,
-                 reservoir: bool = True, device="cuda") -> list[bytes]:
+                 reservoir: bool = True, device=None,
+                 mesh=None) -> list[bytes]:
     """Encode a batch of float PCM arrays ([n] or [n, ch], same channel
     count and sample rate) to MP3 bytes. See module docstring.
 
@@ -157,9 +158,16 @@ def encode_batch(pcms, sample_rate: int | None = None,
     counts materialize to the host path (correct, not zero-copy).
 
     Unset parameters fall back to the active EncodeConfig (SURVEY.md
-    §5.6), mirroring encode_pcm. device ("cuda" by default) is where the
+    §5.6), mirroring encode_pcm. device ("cuda" unless given) is where the
     device stages run; on a card the C++ emitter and mux are required
-    (no Python fallback), as the C++ unpacker is for the decode."""
+    (no Python fallback), as the C++ unpacker is for the decode.
+
+    mesh (a parallel.StreamMesh) splits the streams by its stream_sharding:
+    each shard's streams are encoded on that shard's device (on a card, on a
+    CUDA stream of the shard's own; the host starts the shards in turn), and
+    the MP3s come back in stream order, byte for byte those of the unsharded
+    call. A DecodedBatch with mesh set goes through the host. A `device`
+    that is not one of the mesh's raises ValueError."""
     from ..config import get_active
     ecfg = get_active().encode
     bitrate = ecfg.bitrate if bitrate is None else bitrate
@@ -194,12 +202,16 @@ def encode_batch(pcms, sample_rate: int | None = None,
         recs = [pcms.device_pcm(i) for i in range(len(pcms))]
         nchs = {r[4] for r in recs}
         on = [r[0].device for r in recs if isinstance(r[0], torch.Tensor)]
-        if on:      # the encode runs where the handle's PCM lies
+        if on and mesh is None:  # the encode runs where the handle's PCM lies
             device = on[0]
-        if (len(nchs) != 1 or next(iter(nchs)) > 2 or len(on) < len(recs)):
+        if (mesh is not None or len(nchs) != 1 or next(iter(nchs)) > 2
+                or len(on) < len(recs)):
             pcms = [p.astype(np.float64) / 32768.0 for p, _sr in pcms.numpy()]
             recs = None
-    device = torch.device(device)
+    if mesh is not None:
+        _check_mesh_device(mesh, device)  # and the mesh's devices rule below
+    else:
+        device = torch.device("cuda" if device is None else device)
 
     arrs = []
     if recs is None:
@@ -210,21 +222,67 @@ def encode_batch(pcms, sample_rate: int | None = None,
             arrs.append(a)
         nchs = {a.shape[1] for a in arrs}
         if len(nchs) != 1 or arrs[0].shape[1] > 2:
+            # stream by stream, each on its shard's device
             from . import encode_pcm
+            devs = ([device] * len(arrs) if mesh is None else
+                    [dev for dev, sl in zip(mesh.devices, _slices(mesh, len(arrs)))
+                     for _ in range(sl.start, sl.stop)])
             return [encode_pcm(a, sample_rate, bitrate=bitrate,
                                gapless_tag=gapless_tag,
                                short_blocks=short_blocks,
                                joint_stereo=joint_stereo,
                                noise_shaping=noise_shaping,
-                               reservoir=reservoir, device=device)
-                    for a in arrs]
-    phases = _Phases(device)
-    try:
-        return _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag,
-                             short_blocks, joint_stereo, noise_shaping,
-                             reservoir, device, bool(ecfg.device_emit), phases)
-    finally:
-        phases.close()
+                               reservoir=reservoir, device=dev)
+                    for a, dev in zip(arrs, devs)]
+    def run(part, part_recs, dev):
+        phases = _Phases(dev)
+        try:
+            return _encode_batch(part, part_recs, sample_rate, bitrate,
+                                 gapless_tag, short_blocks, joint_stereo,
+                                 noise_shaping, reservoir, dev,
+                                 bool(ecfg.device_emit), phases)
+        finally:
+            phases.close()
+
+    if mesh is None:
+        return run(arrs, recs, device)
+    out = []
+    for dev, sl in zip(mesh.devices, _slices(mesh, len(arrs))):
+        if sl.start == sl.stop:
+            continue
+        if dev.type != "cuda":
+            out += run(arrs[sl], None, dev)
+            continue
+        # the shard's own stream, behind what the device's current stream
+        # holds. _encode_batch ends with its results on the host, so the
+        # shards still run one after the other: the stream keeps a shard's
+        # work apart from the caller's, and overlap between shards waits for
+        # an encode that submits every shard before it collects any
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            out += run(arrs[sl], None, dev)
+        torch.cuda.current_stream(dev).wait_stream(side)
+    return out
+
+
+def _slices(mesh, n_streams: int):
+    """The mesh's slices of n_streams streams, one per shard."""
+    from ..parallel.mesh import stream_sharding
+    return stream_sharding(mesh).slices(n_streams)
+
+
+def _check_mesh_device(mesh, device) -> None:
+    """ValueError unless `device` (None: whatever the mesh says) names a
+    device of the mesh; a bare "cuda" or "cpu" names every device of its
+    kind."""
+    if device is None:
+        return
+    dev = torch.device(device)
+    if not any(d.type == dev.type and (dev.index is None or d.index == dev.index)
+               for d in mesh.devices):
+        raise ValueError(f"encode_batch: device {device} is not one of the "
+                         f"mesh's {[str(d) for d in mesh.devices]}")
 
 
 def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,

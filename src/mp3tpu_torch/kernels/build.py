@@ -4,11 +4,15 @@ library with g++ (the unpacker, the encoder's row emitter and the stream mux
 in one library, loaded by bitstream/native.py).
 
 Each source in csrc/ has a plain C interface and includes no PyTorch header,
-so it compiles in seconds. The library goes to build/mp3tpu_torch/ at the root
-of the checkout, named by a hash of the source, the headers beside it and the
-flags (for g++, also the host CPU's features, since -march=native follows
-them): an edited source is rebuilt at its first use, an unchanged one is
-loaded as it is. A lock file per library serialises its builds across
+so it compiles in seconds. The sources are package data: csrc/ lies beside the
+package's modules, in a checkout and in an installed copy alike. The library
+goes to the build directory (build_dir(): the environment variable
+MP3TPU_TORCH_BUILD_DIR if set; build/mp3tpu_torch/ at the root of the checkout
+when the package runs from one; else a per-user cache directory,
+$XDG_CACHE_HOME or ~/.cache, /mp3tpu_torch), named by a hash of the source,
+the headers beside it and the flags (for g++, also the host CPU's features,
+since -march=native follows them): an edited source is rebuilt at its first
+use, an unchanged one is loaded as it is. A lock file per library serialises its builds across
 processes. The compiler's messages (with ptxas's register and shared-memory
 report) are kept beside the library in a .log file.
 """
@@ -23,7 +27,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "mp3tpu_torch"
+BUILD_DIR_ENV = "MP3TPU_TORCH_BUILD_DIR"
 # no --use_fast_math: it would change cbrtf, exp2f and division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -34,6 +38,22 @@ CXX_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-std=c++17", "-fPIC",
 # sources compiled into the library of the source that names it, as the
 # Makefile links them into one
 COMPANIONS = {"unpack.cpp": ("encode_rows.cpp", "mux_stream.cpp")}
+
+
+def build_dir() -> Path:
+    """Where the libraries go, read at each build: $MP3TPU_TORCH_BUILD_DIR;
+    else build/mp3tpu_torch/ of the checkout the package runs from (the
+    package lies in its src/, beside a pyproject.toml); else the per-user
+    cache directory."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    if env:
+        return Path(env)
+    root = Path(__file__).resolve().parents[3]
+    if CSRC.parents[1].name == "src" and (root / "pyproject.toml").is_file():
+        return root / "build" / "mp3tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "mp3tpu_torch"
 
 
 def nvcc_path() -> str:
@@ -64,8 +84,9 @@ def _cpu_features() -> bytes:
 def build_lock(name: str):
     """Hold the build directory's lock of library `name` (one build of it at
     a time, across processes; other libraries build meanwhile)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / f"{name}.lock", "w") as f:
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / f"{name}.lock", "w") as f:
         fcntl.flock(f, fcntl.LOCK_EX)
         try:
             yield
@@ -89,7 +110,7 @@ def build(source: str, defines: tuple = ()) -> Path:
         digest.update(h.read_bytes())
     if not cuda:
         digest.update(_cpu_features())
-    out = BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+    out = build_dir() / f"{src.stem}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     with build_lock(out.stem):

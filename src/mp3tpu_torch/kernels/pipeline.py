@@ -3,8 +3,9 @@
 One window of granules of S streams at a time:
 
   plane decode -> C1-C5 (fused_pipeline_z: the CUDA kernel on the card, its
-  plain version on the CPU) -> C6-C7 (overlap-add, frequency inversion,
-  16-tap synthesis FIR) -> int16
+  plain version on the CPU) -> C6-C7 (synth_backend: overlap-add, frequency
+  inversion, 16-tap synthesis FIR; the fixed-order CUDA kernel on the card,
+  its plain version on the CPU) -> int16
 
 The JAX package's lax.scan programs are Python loops over windows here, each
 carrying the decoder state {overlap [S,2,32,18], hist [S,2,15,32]} float32.
@@ -17,6 +18,7 @@ from torch import nn
 
 from ..dsp.resample import Resampler
 from .fused_z import fused_pipeline_z
+from .synth import synth_backend
 from .tables import DeviceTables, build_tables
 
 
@@ -25,25 +27,6 @@ def init_state(n_streams: int, n_channels: int = 2, device="cuda") -> dict:
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
     return {"overlap": z(n_streams, n_channels, 32, 18),
             "hist": z(n_streams, n_channels, 15, 32)}
-
-
-def _backend(z: torch.Tensor, state: dict, tables: DeviceTables):
-    """Overlap-add + frequency inversion + synthesis FIR (C6-C7):
-    z [S,G,2,32,36] -> pcm float32 [S, G*576, 2], new state."""
-    S, G = z.shape[:2]
-    tails = torch.cat([state["overlap"][:, None], z[:, :-1, :, :, 18:]], dim=1)
-    s = (z[..., :18] + tails) * tables.inv_mask                # [S,G,2,32,18]
-    new_overlap = z[:, -1, :, :, 18:].contiguous()
-
-    # C7: pcm_t = sum_d seq_{t-d} @ synth_fir[d], as one matmul over
-    # windows full[t : t+16] (synth_w holds the taps in that order)
-    T = G * 18
-    seq = s.permute(0, 2, 1, 4, 3).reshape(S, 2, T, 32)
-    full = torch.cat([state["hist"], seq], dim=2)             # [S,2,15+T,32]
-    win = full.unfold(2, 16, 1).reshape(S * 2 * T, 512)       # [.., k*16+w]
-    pcm = (win @ tables.synth_w).reshape(S, 2, T * 32).transpose(1, 2)
-    new_hist = full[:, :, -15:].contiguous()
-    return pcm, {"overlap": new_overlap, "hist": new_hist}
 
 
 class GranuleDecoder(nn.Module):
@@ -58,7 +41,7 @@ class GranuleDecoder(nn.Module):
         mixed bool [S,G,2], smode uint8 [S,G,64], state from init_state
         -> (pcm float32 [S, G*576, 2], new state)."""
         z = fused_pipeline_z(is_, exp, block_type, mixed, smode, self.tables)
-        return _backend(z, state, self.tables)
+        return synth_backend(z, state, self.tables)
 
 
 def _device_key(device) -> torch.device:

@@ -1,5 +1,6 @@
-"""Checks of the CUDA kernels of csrc/fused_z.cu against their plain versions
-on a CUDA device, and the least time the card could take for their work.
+"""Checks of the CUDA kernels of csrc/fused_z.cu and csrc/synth.cu against
+their plain versions on a CUDA device, and the least time the card could take
+for their work.
 
 The cuda-marked tests (tests/test_torch_fused_z.py, test_torch_frontend.py)
 and the kernel phase of chip_smoke.py run the same checks:
@@ -8,7 +9,9 @@ subband of each granule pair within REL_TOL of its own largest value) at
 pair counts that do not fill the persistent grid, for every input type the
 kernel reads, and asserts that its bits do not depend on the input types,
 on the launch or on the batch a pair sits in, and that zero pairs launch
-nothing.
+nothing. check_synth() does the same for the synthesis kernel (C6-C7): each
+(stream, channel) row of PCM within REL_TOL of the row's largest value, the
+state equal bit for bit, and the same bits whatever the call's shape.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from . import fused_z as fz
+from . import synth as sy
 from .tables import DeviceTables
 
 # kernel vs plain, both float32: they differ by the cube-root seed, the
@@ -223,3 +227,148 @@ def check_kernel(name: str, tables: DeviceTables, log=print) -> None:
         check(name, tables, log)
     if tables.band_map.device.type == "cuda":
         torch.cuda.synchronize(tables.band_map.device)
+
+
+# ---- the synthesis kernel (C6-C7, csrc/synth.cu)
+
+# (S, G) of check_synth's comparisons with the plain version: single
+# granules, a last tile of time steps that is part empty, rows the persistent
+# grid wraps unevenly
+SYNTH_SHAPES = ((1, 1), (3, 2), (5, 7), (2, 32), (67, 3), (4, 130))
+
+
+def random_z(S: int, G: int, seed: int, device="cuda"):
+    """Seeded z [S, G, 2, 32, 36] float32 with streams of different loudness
+    (so that a row's tolerance is its own), and a non-zero decoder state."""
+    rng = np.random.default_rng(seed)
+    loud = np.exp(rng.uniform(-6.0, 0.0, (S, 1, 1, 1, 1)))
+    z = (rng.standard_normal((S, G, 2, 32, 36)) * 0.05 * loud).astype(np.float32)
+    state = {"overlap": (rng.standard_normal((S, 2, 32, 18)) * 0.05
+                         * loud[:, 0]).astype(np.float32),
+             "hist": (rng.standard_normal((S, 2, 15, 32)) * 0.05
+                      * loud[:, 0]).astype(np.float32)}
+    return (torch.from_numpy(z).to(device),
+            {k: torch.from_numpy(v).to(device) for k, v in state.items()})
+
+
+def synth_traffic(z: torch.Tensor) -> tuple:
+    """(bytes, float32 operations) of one synth_backend call on z: z, the
+    state and the two tables read once, PCM and the new state written once;
+    512 multiply-adds a sample, and an add and a multiply per value of seq."""
+    S, G = z.shape[:2]
+    state = S * 2 * (32 * 18 + 15 * 32) * 4
+    n_bytes = (z.numel() * 4 + state + (32 * 18 + 512 * 32) * 4
+               + S * 2 * G * 576 * 4 + state)
+    flops = S * 2 * G * 576 * (512 * 2 + 2)
+    return n_bytes, flops
+
+
+def synth_bound(z: torch.Tensor) -> dict:
+    """As bound(), for the synthesis kernel."""
+    nbytes, flops = synth_traffic(z)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
+    return {"bytes": nbytes, "flops": flops,
+            "bound_us": 1e6 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def compare_synth(got, want, what: str):
+    """(max |d|, max |want|, the worst row's error over its tolerance) of
+    (pcm [S, n, 2], state) pairs: each (stream, channel) row of PCM is held
+    to REL_TOL of its own largest |want|; the states (sums of two values and
+    copies) must be equal bit for bit. Raises otherwise."""
+    (pcm, st), (pcm_w, st_w) = got, want
+    if pcm.shape != pcm_w.shape:
+        raise AssertionError(f"synth {what}: shape {tuple(pcm.shape)} vs "
+                             f"{tuple(pcm_w.shape)}")
+    if not bool(torch.isfinite(pcm).all()):
+        raise AssertionError(f"synth {what}: output not finite")
+    for k in ("overlap", "hist"):
+        if not torch.equal(st[k], st_w[k]):
+            raise AssertionError(f"synth {what}: new {k} differs from plain")
+    err_r = (pcm - pcm_w).abs().amax(dim=1)                     # [S, 2]
+    tol_r = REL_TOL * pcm_w.abs().amax(dim=1)
+    if not bool((tol_r > 0).all()):
+        raise AssertionError(f"synth {what}: the plain version gives a zero row")
+    worst = float((err_r / tol_r).max())
+    if not worst <= 1.0:
+        s, c = divmod(int((err_r / tol_r).argmax()), 2)
+        raise AssertionError(
+            f"synth {what}: stream {s} channel {c} at {worst:.3g} of its tol "
+            f"(REL_TOL {REL_TOL:g} of the row's max |pcm|)")
+    return float(err_r.max()), float(pcm_w.abs().max()), worst
+
+
+def _equal_out(a, b) -> bool:
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1]["overlap"], b[1]["overlap"])
+            and torch.equal(a[1]["hist"], b[1]["hist"]))
+
+
+def check_synth(tables: DeviceTables, log=print) -> None:
+    """Every check of the synthesis kernel on the device of `tables`: within
+    REL_TOL of plain at SYNTH_SHAPES; bit-identical PCM and state for two
+    launches, for one call at [S, G] against S calls at [1, G], for one call
+    at G=64 against two at G=32 carrying the state, and for S=36 rows of 130
+    granules against each stream alone in windows of 32; zero granules and
+    zero streams launch nothing."""
+    dev = tables.synth_w.device
+    for S, G in SYNTH_SHAPES:
+        z, st = random_z(S, G, seed=100 * S + G, device=dev)
+        _, _, worst = compare_synth(sy.synth_backend(z, st, tables),
+                                    sy.synth_backend_reference(z, st, tables),
+                                    f"S={S} G={G}")
+        log(f"check synth: S={S} G={G} within tol of plain (worst row at "
+            f"{worst:.3g} of its tol), state bit-identical")
+
+    z, st = random_z(64, 32, seed=64, device=dev)
+    out = sy.synth_backend(z, st, tables)
+    if not _equal_out(out, sy.synth_backend(z, st, tables)):
+        raise AssertionError("synth: two launches differ")
+    for s in range(64):
+        one = sy.synth_backend(z[s:s + 1], {k: v[s:s + 1] for k, v in st.items()},
+                               tables)
+        if not _equal_out(one, (out[0][s:s + 1],
+                                {k: v[s:s + 1] for k, v in out[1].items()})):
+            raise AssertionError(f"synth: stream {s} at S=1 differs from the "
+                                 "same stream at S=64")
+    log("check synth: two launches bit-identical; one call at [64, 32] "
+        "bit-identical to 64 calls at [1, 32]")
+
+    z, st = random_z(5, 64, seed=7, device=dev)
+    whole = sy.synth_backend(z, st, tables)
+    a, mid = sy.synth_backend(z[:, :32], st, tables)
+    b, end = sy.synth_backend(z[:, 32:], mid, tables)
+    if not _equal_out(whole, (torch.cat([a, b], dim=1), end)):
+        raise AssertionError("synth: one call at G=64 differs from two at "
+                             "G=32 carrying the state")
+    log("check synth: one call at G=64 bit-identical to two at G=32 carrying "
+        "the state")
+
+    z, st = random_z(36, 130, seed=36, device=dev)
+    rows = sy.synth_backend(z, st, tables)
+    for s in range(36):
+        state = {k: v[s:s + 1] for k, v in st.items()}
+        parts = []
+        for g in range(0, 130, 32):
+            p, state = sy.synth_backend(z[s:s + 1, g:g + 32], state, tables)
+            parts.append(p)
+        if not _equal_out((torch.cat(parts, dim=1), state),
+                          (rows[0][s:s + 1],
+                           {k: v[s:s + 1] for k, v in rows[1].items()})):
+            raise AssertionError(f"synth: stream {s} of [36, 130] differs from "
+                                 "its decode alone in windows of 32")
+    log("check synth: [36, 130] bit-identical to each stream alone in "
+        "windows of 32 granules")
+
+    before = sy.synth_backend.launches
+    for S, G in ((4, 0), (0, 32)):
+        z, st = random_z(S, G, seed=1, device=dev)
+        pcm, st2 = sy.synth_backend(z, st, tables)
+        if (tuple(pcm.shape) != (S, G * 576, 2) or st2 is not st
+                or sy.synth_backend.launches != before):
+            raise AssertionError(f"synth: S={S} G={G} launched, gave output "
+                                 "or changed the state")
+    log("check synth: zero granules and zero streams -> empty PCM, the state "
+        "as it was, no launch")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -56,7 +56,7 @@ class DeviceTables(nn.Module):
         self.register_buffer("alias_cross", torch.as_tensor(
             cross_c, dtype=torch.float32, device=device))
         # synth_w[k*16 + w, j] = synth_fir[15 - w, k, j]: the FIR as one
-        # matmul over unfold(time, 16) windows (see pipeline._backend)
+        # matmul over unfold(time, 16) windows (see synth.synth_backend_reference)
         self.register_buffer("synth_w", self.synth_fir.flip(0).permute(1, 0, 2)
                              .reshape(512, 32).contiguous())
 

@@ -329,12 +329,56 @@ def test_init_cpu_sets_config_and_warms():
 
 @pytest.mark.parametrize("n", [2, 8])
 def test_init_more_processes_raises(n):
+    """More processes initialise a torch.distributed group; one that cannot
+    be joined (a coordinator without a port, a rank outside the world) raises
+    and leaves the active config as it was."""
+    import torch.distributed as dist
     before = port_config.get_active()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        mp3tpu_torch.init(num_processes=n, process_id=0,
-                          distributed_coordinator="localhost:1234",
-                          device="cpu")
+    cfg = port_config.resolve(decode={"window_granules": 16})
+    bad = ({"distributed_coordinator": "localhost", "process_id": 0} if n == 2
+           else {"distributed_coordinator": "localhost:1234", "process_id": n})
+    with pytest.raises(ValueError):
+        mp3tpu_torch.init(cfg, sample_rates=(), num_processes=n, device="cpu",
+                          **bad)
     assert port_config.get_active() is before
+    assert not dist.is_initialized()
+
+
+def test_init_joins_a_process_group():
+    """init(distributed_coordinator=...) with one process stands up a gloo
+    group of one rank on the CPU: the collectives are identities over it."""
+    import socket
+    import torch.distributed as dist
+    from mp3tpu_torch import parallel as par
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        # a step behind the join fails (no tables for this rate): the group
+        # is left again and the active config put back, so init can be retried
+        before = port_config.get_active()
+        with pytest.raises(Exception):
+            mp3tpu_torch.init(port_config.resolve(decode={"window_granules": 16}),
+                              sample_rates=(12345,), num_processes=1, process_id=0,
+                              distributed_coordinator=f"127.0.0.1:{port}",
+                              device="cpu")
+        assert not dist.is_initialized()
+        assert port_config.get_active() is before
+        cfg = mp3tpu_torch.init(sample_rates=(), num_processes=1, process_id=0,
+                                distributed_coordinator=f"127.0.0.1:{port}",
+                                device="cpu")
+        assert cfg == port_config.resolve()
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert dist.get_world_size() == 1 and dist.get_rank() == 0
+        assert par.rank_slice(5) == slice(0, 5)
+        x = np.arange(10, dtype=np.int16).reshape(5, 2)
+        assert np.array_equal(par.gather_to_host0(x), x)
+        assert par.gather_to_host0([b"a", b"bc"]) == [b"a", b"bc"]
+        assert par.allreduce_metric(2.5) == 2.5
+    finally:
+        par.shutdown_distributed()
+        port_config.set_active(port_config.resolve())
+    assert not dist.is_initialized()
 
 
 def test_global_metrics_counts_every_path(files):

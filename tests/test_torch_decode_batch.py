@@ -49,20 +49,21 @@ def test_decode_batch_matches_jax(kinds):
 
 
 def test_decode_batch_unported_paths_raise(tmp_path):
-    """output="device" and the encoder are ported; what still waits is what
-    needs more than one process, and it names its ROADMAP item."""
+    """output="device", the encoder and the sharded path are ported: a wrong
+    output= still raises, more processes want a coordinator, and mesh= is an
+    argument of encode_batch (None: the unsharded call)."""
     handle = mp3tpu_torch.decode_batch([clip("tonal")], device="cpu",
                                        output="device")
     assert isinstance(handle, mp3tpu_torch.DecodedBatch) and len(handle) == 1
     with pytest.raises(ValueError, match="output"):
         mp3tpu_torch.decode_batch([clip("tonal")], device="cpu", output="hbm")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="coordinator"):
         mp3tpu_torch.init(num_processes=2, device="cpu")
     for name in ("encode", "encode_batch", "transcode_batch"):
         assert callable(getattr(mp3tpu_torch, name))
-    with pytest.raises(TypeError, match="mesh"):   # no stub that pretends
-        mp3tpu_torch.encode_batch([np.zeros(2000)], 44100, mesh=None,
-                                  device="cpu")
+    pcm = [0.1 * np.sin(np.arange(2000) / 7.0)]
+    assert mp3tpu_torch.encode_batch(pcm, 44100, mesh=None, device="cpu") == \
+        mp3tpu_torch.encode_batch(pcm, 44100, device="cpu")
 
 
 @pytest.fixture

@@ -40,7 +40,9 @@ def test_port_sources_import_no_jax():
     assert len(files) >= 10
     names = {os.path.relpath(f, PORT) for f in files}
     assert {"cli.py", os.path.join("utils", "profiling.py"), "api.py",
-            "transfer.py"} <= names
+            "transfer.py", os.path.join("parallel", "mesh.py"),
+            os.path.join("parallel", "distributed.py"),
+            os.path.join("kernels", "synth.py")} <= names
     assert {os.path.join("encoder", f) for f in (
         "__init__.py", "batch.py", "device.py", "psy_device.py",
         "vloop_device.py", "emit_device.py", "tables.py", "mux_packed.py",
