@@ -23,8 +23,10 @@ failure raises and the script exits non-zero:
      selfcheck.check_synth (within tolerance of its plain version at odd
      shapes; bit-identical PCM and state across launches, batch sizes,
      window splits and the chunked decode's shape; zero granules) and
-     against its plain version at SYNTH_CASES, with its time, the plain
-     version's, one conv1d call's and its bound;
+     against both plain versions (the FIR as one matmul; the factored
+     matrixing + window) at SYNTH_CASES, with its registers, spills, shared
+     memory and blocks per SM, its times (warm and with a cold L2), the
+     plain version's, one conv1d call's and its bound;
   4. decode_batch: 64 streams of the three 10 s clips of tests/torch_clips
      (made by mp3tpu's own encoder and committed), through
      mp3tpu_torch.decode_batch: lengths, kernel launches (one per live
@@ -109,9 +111,10 @@ that every kernel builds, launches and agrees with its plain version.
 
     python3 chip_smoke.py --variants
 
-instead times csrc/fused_z.cu's measurement variants (VARIANTS: a deeper
-input ring, fewer blocks per SM, C5's arithmetic left out) against the
-kernel as built.
+instead times csrc/synth.cu's measurement variants (SYNTH_VARIANTS: the
+arithmetic of seq, the matrixing or the window left out) and
+csrc/fused_z.cu's (VARIANTS: a deeper input ring, fewer blocks per SM, C5's
+arithmetic left out) against each kernel as built.
 """
 from __future__ import annotations
 
@@ -361,15 +364,39 @@ SYNTH_CASES = (
 )
 
 
+def ptxas_report(source: str, kernel: str) -> dict:
+    """Registers, spill stores and spill loads (bytes) of `kernel` in the
+    ptxas report (nvcc -Xptxas -v) of csrc/`source`'s build log."""
+    import re
+    from mp3tpu_torch.kernels import build
+    text = build.build(source).with_suffix(".log").read_text()
+    parts = text.split("Compiling entry function")
+    part = next((p for p in parts[1:] if kernel in p.splitlines()[0]), None)
+    if part is None:
+        raise AssertionError(f"{source}: no ptxas report of {kernel}")
+    regs = re.search(r"Used (\d+) registers", part)
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+    return {"registers": int(regs.group(1)), "spill_stores": int(spill.group(1)),
+            "spill_loads": int(spill.group(2))}
+
+
 def synth_cases(tables, card: str) -> list:
     """The synthesis kernel (csrc/synth.cu) through selfcheck.check_synth,
-    then against its plain version (unfold + one matmul) at SYNTH_CASES,
-    with its time, the plain version's, the time of one conv1d call that
-    computes the FIR alone from the overlap-added sequence, and the time of
-    the whole function through torch ops around that conv1d (yardsticks timed
-    here and used nowhere in the port), beside its bound."""
+    then against both plain versions (unfold + one matmul over the 512 FIR
+    taps; the factored matrixing + window in torch ops) at SYNTH_CASES, with
+    its time (warm, and with a cold L2), the plain version's time (the FIR
+    as one matmul), the time of one conv1d call that computes the FIR alone
+    from the overlap-added sequence, and the time of the whole function
+    through torch ops around that conv1d (yardsticks timed here and used
+    nowhere in the port), beside its bound. Logs the kernel's registers and spills (ptxas), shared memory
+    a block and blocks per SM first."""
     from mp3tpu_torch.kernels import selfcheck as sc
     from mp3tpu_torch.kernels import synth as sy
+    ptx, cfg = ptxas_report("synth.cu", "synth_kernel"), sy.kernel_config()
+    log(f"synth kernel: {ptx['registers']} registers, {ptx['spill_stores']} / "
+        f"{ptx['spill_loads']} bytes of spill stores / loads (ptxas), "
+        f"{cfg['threads']} threads and {cfg['smem_bytes']} bytes of shared memory "
+        f"a block, {cfg['blocks_per_sm']} blocks per SM (occupancy query)")
     t0 = time.perf_counter()
     sc.check_synth(tables, log=log)
     log(f"check synth: passed in {time.perf_counter() - t0:.2f} s")
@@ -379,12 +406,17 @@ def synth_cases(tables, card: str) -> list:
         z, st = sc.random_z(S, G, seed=S)
         at = f"S={S} G={G} ({path})"
         want = sy.synth_backend_reference(z, st, tables)
-        err, scale, worst = sc.compare_synth(sy.synth_backend(z, st, tables),
-                                             want, at)
+        got = sy.synth_backend(z, st, tables)
+        err, scale, worst = sc.compare_synth(got, want, at)
+        err_f, _, worst_f = sc.compare_synth(
+            got, sy.synth_backend_factored_reference(z, st, tables),
+            at + ", against the factored plain version")
         torch.cuda.synchronize()
-        log(f"kernel synth {at}: max |d| {err:.6g}, max |pcm| {scale:.6g}; "
-            f"worst row at {worst:.3g} of its tol (REL_TOL {sc.REL_TOL:g} of the "
-            f"row's max |pcm|); new state bit-identical to plain")
+        log(f"kernel synth {at}: max |d| {err:.6g} from plain (unfold + matmul), "
+            f"{err_f:.6g} from the factored plain version, max |pcm| {scale:.6g}; "
+            f"worst row at {worst:.3g} / {worst_f:.3g} of its tol (REL_TOL "
+            f"{sc.REL_TOL:g} of the row's max |pcm|); new state bit-identical to both")
+        del got
         # the library call: conv1d over full = hist ++ seq, made beforehand
         tails = torch.cat([st["overlap"][:, None], z[:, :-1, :, :, 18:]], dim=1)
         seq = ((z[..., :18] + tails) * tables.inv_mask).permute(0, 2, 1, 4, 3)
@@ -418,10 +450,14 @@ def synth_cases(tables, card: str) -> list:
         del tails, seq, full, x, lib, got
         b = sc.synth_bound(z)
         ms = cuda_ms(lambda: sy.synth_backend(z, st, tables))
+        cold = cuda_ms_cold(
+            lambda z_, o_, h_: sy.synth_backend(z_, {"overlap": o_, "hist": h_}, tables),
+            [z, st["overlap"], st["hist"]], b["bytes"])
         plain_ms = cuda_ms(lambda: sy.synth_backend_reference(z, st, tables))
-        share = b["bound_us"] / (1e3 * ms)
-        log(f"kernel synth {at}: {ms:.4f} ms ({100 * share:.1f}% of the bound), "
-            f"plain (unfold + matmul) {plain_ms:.4f} ms, one conv1d call on the "
+        share, share_cold = b["bound_us"] / (1e3 * ms), b["bound_us"] / (1e3 * cold)
+        log(f"kernel synth {at}: {ms:.4f} ms warm L2 ({100 * share:.1f}% of the "
+            f"bound), cold L2 {cold:.4f} ms ({100 * share_cold:.1f}%), plain "
+            f"(unfold + matmul) {plain_ms:.4f} ms, one conv1d call on the "
             f"overlap-added sequence {library_ms:.4f} ms (max |d| {lib_err:.3g} "
             f"from plain; TF32 off; the FIR alone), the whole function through "
             f"torch ops around that conv1d {library_whole_ms:.4f} ms "
@@ -430,14 +466,15 @@ def synth_cases(tables, card: str) -> list:
             f"us by {b['bound_by']} ({card})")
         out.append({
             "S": S, "G": G, "types": "float32", "used_by": path,
-            "max_abs_err": err, "worst_over_tol": worst, "ms": ms,
-            "ms_cold_l2": None, "plain_ms": plain_ms,
+            "max_abs_err": err, "max_abs_err_factored": err_f,
+            "worst_over_tol": max(worst, worst_f), "ms": ms,
+            "ms_cold_l2": cold, "plain_ms": plain_ms,
             "bound_ms": b["bound_us"] / 1e3, "bound_by": b["bound_by"],
             "library_ms": library_ms,
             "library_covers": "the FIR only: conv1d on hist ++ seq made beforehand",
             "library_whole_ms": library_whole_ms, "bytes": b["bytes"],
-            "bound_us": b["bound_us"], "bound_share": share,
-            "bound_share_warm_l2": share})
+            "bound_us": b["bound_us"], "bound_share": share_cold,
+            "bound_share_warm_l2": share, **ptx, **cfg})
     return out
 
 
@@ -449,18 +486,47 @@ VARIANTS = (("as built", ()),
             ("no C5 arithmetic", ("MP3TPU_FZ_NO_C5=1",)))
 
 
+# csrc/synth.cu's measurement variants: (name, macros)
+SYNTH_VARIANTS = (("as built", ()),
+                  ("no seq arithmetic", ("MP3TPU_SY_SKIP=1",)),
+                  ("no matrixing arithmetic", ("MP3TPU_SY_SKIP=2",)),
+                  ("no window arithmetic", ("MP3TPU_SY_SKIP=4",)),
+                  ("loads and stores only", ("MP3TPU_SY_SKIP=7",)))
+
+
 def variants_main(card: str) -> None:
-    """Each measurement variant of csrc/fused_z.cu (all built at once),
-    timed against the kernel as built at S=64 and S=256 (int32 symbols),
-    warm and with a cold L2; every variant but the one without C5 must give
-    the bits of the kernel as built."""
+    """Each measurement variant of csrc/synth.cu and csrc/fused_z.cu (all
+    built at once), timed against the kernel as built, warm and with a cold
+    L2: the synthesis at its four path shapes, C1-C5 and C1-C4 at S=64 and
+    S=256 (int32 symbols). Only the variants as built must give the
+    kernel's bits, and for fused_z every variant but the one without C5."""
     from concurrent.futures import ThreadPoolExecutor
     from mp3tpu_torch.kernels import fused_z as fz
     from mp3tpu_torch.kernels import selfcheck as sc
+    from mp3tpu_torch.kernels import synth as sy
     from mp3tpu_torch.kernels.tables import build_tables
-    with ThreadPoolExecutor(len(VARIANTS)) as ex:
-        list(ex.map(fz._library, [d for _, d in VARIANTS]))
+    with ThreadPoolExecutor(len(VARIANTS) + len(SYNTH_VARIANTS)) as ex:
+        builds = ([ex.submit(fz._library, d) for _, d in VARIANTS]
+                  + [ex.submit(sy._library, d) for _, d in SYNTH_VARIANTS])
+        for b in builds:
+            b.result()
     tables = build_tables(SR, "cuda")
+    for S, G in ((1, WIN), (64, WIN), (256, WIN), (36, CHUNK_G)):
+        z, st = sc.random_z(S, G, seed=S)
+        ref = sy._launch(z, st, tables)
+        nbytes = sc.synth_bound(z)["bytes"]
+        for what, defines in SYNTH_VARIANTS:
+            lib = sy._library(defines)
+            same = sc._equal_out(sy._launch(z, st, tables, lib=lib), ref)
+            if not same and not defines:
+                raise AssertionError("synth: the variant as built changes the bits")
+            ms = cuda_ms(lambda: sy._launch(z, st, tables, lib=lib))
+            cold = cuda_ms_cold(
+                lambda z_, o_, h_: sy._launch(z_, {"overlap": o_, "hist": h_},
+                                              tables, lib=lib),
+                [z, st["overlap"], st["hist"]], nbytes)
+            log(f"variant synth S={S} G={G} {what}: {ms:.4f} ms warm L2, "
+                f"{cold:.4f} ms cold L2, bits as built: {same} ({card})")
     for S in (64, 256):
         args = sc.random_symbols(S, WIN, seed=S)
         for name in sc.KERNELS:

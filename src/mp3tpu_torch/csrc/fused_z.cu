@@ -69,6 +69,8 @@
 
 #include <type_traits>
 
+#include "cuda_tma.h"  // mbarrier, TMA bulk copies, proxy fence
+
 namespace {
 
 constexpr int kLines = 576;    // spectral lines per granule-channel
@@ -143,61 +145,6 @@ struct Layout {
                 kRmap % 16 == 0 && kBar % 16 == 0,
                 "TMA, float4 and mbarrier offsets must be multiples of 16");
 };
-
-// ---- PTX: mbarrier, TMA bulk copies, proxy fence
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-               "r"(src), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// the bulk stores issued so far have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
 
 // ---- arithmetic, every operation rounded on its own
 

@@ -253,13 +253,15 @@ def random_z(S: int, G: int, seed: int, device="cuda"):
 
 def synth_traffic(z: torch.Tensor) -> tuple:
     """(bytes, float32 operations) of one synth_backend call on z: z, the
-    state and the two tables read once, PCM and the new state written once;
-    512 multiply-adds a sample, and an add and a multiply per value of seq."""
+    state and the tables the kernel reads (inv_mask, the 32 distinct rows of
+    the matrixing, the window) read once, PCM and the new state written
+    once; per sample the factored form's 48 multiply-adds (32 of the
+    matrixing, 16 of the window) and the overlap-add's add and multiply."""
     S, G = z.shape[:2]
     state = S * 2 * (32 * 18 + 15 * 32) * 4
-    n_bytes = (z.numel() * 4 + state + (32 * 18 + 512 * 32) * 4
+    n_bytes = (z.numel() * 4 + state + (32 * 18 + 32 * 32 + 512) * 4
                + S * 2 * G * 576 * 4 + state)
-    flops = S * 2 * G * 576 * (512 * 2 + 2)
+    flops = S * 2 * G * 576 * (48 * 2 + 2)
     return n_bytes, flops
 
 

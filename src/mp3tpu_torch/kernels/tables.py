@@ -59,6 +59,45 @@ class DeviceTables(nn.Module):
         # matmul over unfold(time, 16) windows (see synth.synth_backend_reference)
         self.register_buffer("synth_w", self.synth_fir.flip(0).permute(1, 0, 2)
                              .reshape(512, 32).contiguous())
+        # the same synthesis taken apart, for the kernel of csrc/synth.cu and
+        # synth.synth_backend_factored_reference: the window D [512] and the
+        # 32 distinct rows of the matrixing N (SYNTH_V_ROWS)
+        window, matrix = _synth_factors()
+        self.register_buffer("synth_window", torch.tensor(window, device=device))
+        self.register_buffer("synth_matrix", torch.tensor(matrix, device=device))
+
+
+# the rows of the synthesis matrixing N [64, 32] whose values of V are
+# distinct: N[16] = 0, N[32 - i] = -N[i] (i <= 32), N[96 - i] = N[i] (i >= 33)
+SYNTH_V_ROWS = tuple(range(16)) + tuple(range(33, 49))
+
+
+@functools.lru_cache(maxsize=None)
+def _synth_factors() -> tuple:
+    """float32 (D [512], N[SYNTH_V_ROWS] [32, 32]) from the port's own
+    tables/filterbank.py (read-only)."""
+    from ..tables import filterbank as fb
+    window = fb.synthesis_window().astype(np.float32)
+    matrix = fb.synthesis_matrix()[list(SYNTH_V_ROWS)].astype(np.float32)
+    for a in (window, matrix):
+        a.setflags(write=False)
+    return window, matrix
+
+
+def synth_v_expansion() -> tuple:
+    """(src [64], sign [64]): row i of V is sign[i] * P[src[i]], where P
+    holds the values of SYNTH_V_ROWS in that order; sign 0 for V[16]."""
+    pos = {r: m for m, r in enumerate(SYNTH_V_ROWS)}
+
+    def one(i):
+        if i in pos:
+            return pos[i], 1.0
+        if i == 16:
+            return 0, 0.0
+        return (pos[32 - i], -1.0) if i < 33 else (pos[96 - i], 1.0)
+
+    src, sign = zip(*map(one, range(64)))
+    return list(src), list(sign)
 
 
 def imdct_coefs(t: DeviceTables) -> torch.Tensor:
