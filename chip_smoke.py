@@ -40,9 +40,12 @@ failure raises and the script exits non-zero:
      single levels() calls, the bytes they bring to the host, the peak
      device memory; once more at 256 streams (four chunks); and
      decode.d2h_segments 1 against 4, bit-identical, several times;
-  6. config 3: 256 streams x 10 s decoded and resampled to 48 kHz, timed by
-     layer, the device phase with the synthesis kernel beside the same phase
-     with its plain version, stream 0 held against the same code on the CPU;
+  6. config 3: 256 streams x 10 s of the bench's CBR clip
+     (tests/torch_clips/bench_cbr128.mp3) decoded and resampled to 48 kHz
+     through mp3tpu_torch.bench's config-3 code, timed by layer (3 runs),
+     reruns bit-identical, streams 0 and 255 held against the same code on
+     the CPU; the device phase with the synthesis kernel beside the same
+     phase with its plain version;
   7. player: the 60 s stereo track of tests/torch_clips through
      mp3tpu_torch.play: play == decode,
      seek into a later group == the slice, loop, snapshot/restore, the EQ
@@ -73,7 +76,11 @@ failure raises and the script exits non-zero:
  11. cli: mp3tpu_torch.cli.main in this process, on the card by default:
      info, decode (the WAV equals decode()), loudness, segments, split (WAV
      and MP3 clips), transcode, play --loop to a WAV;
- 12. multichip: 8 streams of about 1 s, sharded over a mesh of every GPU
+ 12. bench: `mp3tpu-torch bench --configs --reps 1` in this process (the
+     headline, config 3 with the decode_files figures, and one line for each
+     of configs 1, 2, 3, 4 and the three of 5), every line parsed and held
+     to its names, its checks and this card;
+ 13. multichip: 8 streams of about 1 s, sharded over a mesh of every GPU
      present and over a mesh of two shards on cuda:0: one window of the
      granule chain (float32 PCM and state bit for bit the unsharded call's),
      the packed 4-bit arenas -> window loop -> resample to 48 kHz step
@@ -86,8 +93,8 @@ failure raises and the script exits non-zero:
      results.
 The kernels' JSON record gives each kernel's launches in the runs of
 decode_batch, the device-resident batch, the full play, the chunked decode,
-the scheduler, the transcode and the sharded steps, each counted from 0 just
-before the run,
+the scheduler, the transcode, the bench and the sharded steps, each counted
+from 0 just before the run,
 and apart from them the calls of the kernel phase. The line before the last is the card's;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
 nothing of mp3tpu (the JAX package); needs no LAME.
@@ -102,7 +109,7 @@ row-block sizes, and device_loops on against off by stream length.
 
     python3 chip_smoke.py --encode
 
-instead runs only the encode phase (11), after the build.
+instead runs only the encode phase (10), after the build.
 
     python3 chip_smoke.py --kernel
 
@@ -137,13 +144,6 @@ CLIPS = os.path.join(ROOT, "tests", "torch_clips")
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, check=True)
-    return r.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
@@ -204,6 +204,7 @@ def compare_i16(a: np.ndarray, b: np.ndarray, what: str) -> None:
 # ---------------------------------------------------------------- phases
 
 def phase_environment() -> str:
+    from mp3tpu_torch.bench import card_line
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     card = card_line()
@@ -1318,69 +1319,38 @@ def phase_encode(clips: dict, track: bytes, batch: list, fast: list,
     return launches
 
 
-def phase_config3(clips: dict, card: str) -> None:
-    """BASELINE config 3: one uint8 arena per window for all S streams
-    (4-bit spectrum, int8 sideband, byte exponents), one H2D, the split
-    into planes, decode and one resample on the device."""
+def phase_config3(card: str) -> None:
+    """BASELINE config 3 through mp3tpu_torch.bench, the one code that
+    measures it: 256 streams x 10 s of the bench's CBR clip, timed by layer
+    (the median of 3 runs after a warm-up), each run's PCM bit-identical to
+    the first's, streams 0 and 255 held against the same code on the CPU;
+    then the device phase with the synthesis kernel beside the same phase
+    with its plain version."""
+    from mp3tpu_torch import bench
     from mp3tpu_torch.kernels import pipeline as kp
-    from mp3tpu_torch.pipeline import probe_granules, stream_meta, unpack_planes
-    S = 256
-    body = stream_meta(clips["tonal"])[0]   # fits the 4-bit plane family
-    G = probe_granules(body)                # the last window is zero-padded
-    n_win = -(-G // WIN)
-
-    t0 = time.perf_counter()
-    got = unpack_planes([body] * S, [G] * S, S, WIN, plane_bits=4)
-    if got is None or got[2:] != (4, True):
-        raise AssertionError("config3: the clip leaves the 4-bit plane family")
-    planes = got[0]
-    host = kp.pack_window_arenas(planes, S, WIN)
-    t_unpack = time.perf_counter() - t0
-
-    def stage():
-        dev = torch.from_numpy(host).cuda()
-        torch.cuda.synchronize()
-        return dev
-
-    def device(dev):
-        parts = [kp._split_window_arena(dev[w], S, WIN) for w in range(n_win)]
-        x = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
-        out = kp.decode_all_windows_flat_resampled_i16(
-            x["is12"], x["exp"], x["esc"], x["bt"], x["mx"], x["smode"],
-            kp.init_state(S, device="cuda"),
-            kp.init_resample_state(S, SR, device="cuda"), SR, 48000,
-            plane_bits=4)
-        torch.cuda.synchronize()
-        return out
-
-    device(stage())  # warm-up: cuBLAS handles, allocator
-    t0 = time.perf_counter()
-    dev = stage()
-    t_h2d = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pcm16, _, _ = device(dev)
-    t_dev = time.perf_counter() - t0
-    wall = t_unpack + t_h2d + t_dev
-    audio_s = S * G * 576 / SR
-    log(f"config3: {S} streams x {G * 576 / SR:.3f} s -> 48 kHz int16 "
-        f"{tuple(pcm16.shape)}")
-    log(f"config3: host unpack {t_unpack:.4f} s, H2D {t_h2d:.4f} s "
-        f"({host.nbytes / 1e6:.1f} MB), device {t_dev:.4f} s, wall {wall:.4f} s "
-        f"({card})")
-    log(f"config3: aggregate realtime factor {audio_s / wall:.1f}x, "
-        f"device-only {audio_s / t_dev:.1f}x ({card})")
+    from mp3tpu_torch.kernels import synth as sy
+    c3, runs, pcm16, dev, checks = bench.measure_config3(
+        bench.fixture("cbr"), 256, WIN, 3, "cuda")
+    log(f"config3: {c3.S} streams x {c3.G * 576 / c3.sr:.3f} s -> 48 kHz int16 "
+        f"{tuple(pcm16.shape)}; {c3.bits}-bit planes, byte exponents "
+        f"{c3.exp_bytes}, {c3.staged_bytes / 1e6:.1f} MB staged")
+    for r in runs:
+        wall = r["host_unpack_s"] + r["stage_s"] + r["device_s"]
+        log(f"config3: host unpack {r['host_unpack_s']:.4f} s, H2D "
+            f"{r['stage_s']:.4f} s, device {r['device_s']:.4f} s, wall "
+            f"{wall:.4f} s: {c3.audio_s / wall:.1f}x realtime, device-only "
+            f"{c3.audio_s / r['device_compute_only_s']:.1f}x ({card})")
+    log(f"config3: reruns bit-identical; against the CPU {checks['against_cpu']}")
 
     # the device phase with the synthesis kernel against the same phase with
     # its plain version (unfold + one matmul), in turns within this call
-    from mp3tpu_torch.kernels import synth as sy
     routes = {"kernel": sy.synth_backend, "plain": sy.synth_backend_reference}
     walls = {name: [] for name in routes}
     try:
         for name in ("plain", "kernel", "plain", "plain", "kernel"):
             kp.synth_backend = routes[name]
-            t0 = time.perf_counter()
-            other, _, _ = device(dev)
-            walls[name].append(time.perf_counter() - t0)
+            other, wall = bench.timed(lambda: c3.decode(dev), "cuda")
+            walls[name].append(wall)
             d = (other.int() - pcm16.int()).abs()
             if d.max() > 1 or float((d == 0).float().mean()) < 0.98:
                 raise AssertionError(f"config3: the {name} synthesis differs "
@@ -1393,16 +1363,51 @@ def phase_config3(clips: dict, card: str) -> None:
         f"{walls['plain'][2]:.4f} s (after one untimed plain run; kernel, "
         f"plain, plain, kernel) ({card})")
 
-    ref, _, _ = kp.decode_all_windows_flat_resampled_i16(
-        *(torch.from_numpy(np.ascontiguousarray(planes[k][:, :1]))
-          for k in ("is12", "exp", "esc", "bt", "mx", "smode")),
-        kp.init_state(1, device="cpu"),
-        kp.init_resample_state(1, SR, device="cpu"), SR, 48000, plane_bits=4)
-    n2 = 2 * 48000
-    got = pcm16[0, :n2].cpu().numpy()
-    if int(np.abs(got).max()) == 0:
-        raise AssertionError("config3: silent output")
-    compare_i16(got, ref[0, :n2].numpy(), "config3 stream 0 vs CPU, first 2 s")
+
+BENCH_LINES = ("1_single_file_cbr_decode", "2_vbr_joint_stereo_decode",
+               "3_batched_256_resample48k", "4_player_seek_gapless_dsp",
+               "5_encode_path_single", "5_encode_batch_aggregate",
+               "5_encode_batch_64")
+
+
+def phase_bench(card: str) -> dict:
+    """`mp3tpu-torch bench --configs --reps 1` through mp3tpu_torch.cli.main
+    in this process: the headline and one line a configuration, each parsed
+    and held to its keys, its checks and this card. Returns the kernels'
+    launches in the run."""
+    import contextlib
+    import io
+    from mp3tpu_torch import cli
+    buf = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["bench", "--configs", "--reps", "1"])
+    launches = read_counts()
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    head, rest = lines[0], lines[1:]
+    d = head["detail"]
+    if (head["metric"] != "aggregate_decode_realtime_factor"
+            or [x["config"] for x in rest] != list(BENCH_LINES)
+            or not all(x["checked"] is True for x in lines)
+            or {d["card"]} | {x["card"] for x in rest} != {card}):
+        raise AssertionError(f"bench: unexpected lines {lines}")
+    log(f"bench: headline {head['value']:.1f}x realtime ({d['streams']} "
+        f"streams, {d['plane_bits']}-bit planes): host unpack "
+        f"{d['host_unpack_s']:.4f} s, H2D {d['stage_s']:.4f} s, device "
+        f"{d['device_s']:.4f} s, device-only {d['device_compute_only_x']:.1f}x; "
+        f"decode_files of {d['api_streams']} to the device "
+        f"{d['api_device_batch_s']:.4f} s ({d['api_device_batch_x']:.1f}x), "
+        f"to host PCM {d['api_decode_batch_s']:.4f} s "
+        f"({d['api_decode_batch_x']:.1f}x); {d['seconds']:.1f} s ({card})")
+    for x in rest:
+        log(f"bench: {x['config']} {x['x_realtime']:.1f}x realtime, "
+            f"{x['wall_seconds']:.4f} s for {x['audio_seconds']:.1f} s of audio; "
+            f"checks {x['checks']}; {x.get('seconds', 0.0):.1f} s")
+    if min(launches["fused_z"], launches["synth"]) <= 0 \
+            or launches["fused_frontend"] != 0:
+        raise AssertionError(f"bench: launches {launches}")
+    log(f"bench: launches {launches} ({card})")
+    return launches
 
 
 def read_track() -> bytes:
@@ -1991,7 +1996,7 @@ def main() -> int:
     timed("window_loop", window_loop_ms, batch, card)
     paths["device_batch"] = timed("device_batch", phase_device_batch, clips,
                                   batch, fast, card)
-    timed("config3", phase_config3, clips, card)
+    timed("config3", phase_config3, card)
     track = timed("track", read_track)
     paths["player"] = timed("player", phase_player, track, card)
     paths["chunked"] = timed("chunked", phase_chunked, track, card)
@@ -1999,6 +2004,7 @@ def main() -> int:
     paths["transcode"] = timed("encode", phase_encode, clips, track, batch,
                                fast, card)
     timed("cli", phase_cli, clips, track, card)
+    paths["bench"] = timed("bench", phase_bench, card)
     paths["multichip"] = timed("multichip", phase_multichip, clips, card)
 
     # each kernel's launches in the paths' runs, each counted from 0; the
@@ -2029,7 +2035,7 @@ def main() -> int:
                                          "ms_cold_l2", "bound_us", "bound_share")}
                       for c in krec[name]]})
     log(json.dumps({"kernels": kernels}))
-    log(card_line())
+    log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """Command line of the PyTorch port (counterpart of mp3tpu.cli):
 decode | play | practice | encode | transcode | info | segments | split |
 loudness, each with the JAX CLI's arguments and JSON output, and --device
-(default cuda; cpu runs the kernels' plain versions). bench comes with the
-benchmark.
+(default cuda; cpu runs the kernels' plain versions); bench runs the port's
+benchmark (mp3tpu_torch.bench) in this process, where the JAX CLI runs the
+repository's bench.py.
 
     python -m mp3tpu_torch.cli info track.mp3 --device cpu
+    python -m mp3tpu_torch.cli bench --configs          # on the card
 """
 from __future__ import annotations
 
@@ -200,6 +202,16 @@ def _cmd_info(args):
     }, default=str))
 
 
+def _cmd_bench(args):
+    from . import bench
+    argv = ["--device", args.device, "--reps", str(args.reps)]
+    if args.configs:
+        argv.append("--configs")
+    if args.no_api:
+        argv.append("--no-api")
+    return bench.main(argv)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="mp3tpu-torch",
@@ -301,6 +313,18 @@ def main(argv=None):
     lv.add_argument("input", nargs="+")
     lv.add_argument("--target", type=float, default=None,
                     help="target loudness dB (default -14)")
+
+    b = command("bench", _cmd_bench,
+                help="the port's benchmark: BASELINE config 3 (aggregate "
+                     "decode realtime factor) and the API figures, one JSON "
+                     "line each; no fallback from the card to the CPU")
+    b.add_argument("--reps", type=int, default=5,
+                   help="timed runs a line after one warm-up (default 5)")
+    b.add_argument("--configs", action="store_true",
+                   help="also BASELINE configs 1, 2, 4 and 5, after the "
+                        "headline")
+    b.add_argument("--no-api", action="store_true",
+                   help="leave out the 64-stream decode_files figures")
 
     args = ap.parse_args(argv)
     return args.fn(args)

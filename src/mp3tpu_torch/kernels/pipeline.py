@@ -217,12 +217,15 @@ def window_arena_layout(S: int, win: int):
     return off, out
 
 
-def pack_window_arenas(planes: dict, S: int, win: int) -> np.ndarray:
+def pack_window_arenas(planes: dict, S: int, win: int,
+                       out: np.ndarray | None = None) -> np.ndarray:
     """Host side: window-major planes [n_win, S, win, ...] of the 4-bit
-    family -> one uint8 arena per window, [n_win, total_bytes]."""
+    family -> one uint8 arena per window, [n_win, total_bytes], written into
+    `out` when given."""
     wb, layout = window_arena_layout(S, win)
     n_win = planes["is12"].shape[0]
-    out = np.empty((n_win, wb), np.uint8)
+    if out is None:
+        out = np.empty((n_win, wb), np.uint8)
     for k, off, shp, _dt in layout:
         out[:, off:off + int(np.prod(shp))] = planes[k].reshape(n_win, -1).view(np.uint8)
     return out

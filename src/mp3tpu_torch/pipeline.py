@@ -664,12 +664,18 @@ def _unpack_chunk(bodies, Gs, S, win, plane_bits, exp_bytes):
     """One try of unpack_planes at one plane width: (planes, error flags),
     or None if a granule-channel overflows the planes' sideband or
     exponent range."""
-    from .bitstream.native import unpack_native_into12
-    n_win = -(-max(Gs) // win)
+    b = plane_buffers(-(-max(Gs) // win), S, win, plane_bits, exp_bytes)
+    errs = unpack_into(b, bodies, Gs, S, win, plane_bits, exp_bytes)
+    return None if errs is None else (b, errs)
+
+
+def plane_buffers(n_win: int, S: int, win: int, plane_bits: int,
+                  exp_bytes: bool) -> dict:
+    """Zeroed host planes [n_win, S, win, ...] of one plane family."""
     shp = {4: 288, 8: 576, 12: 864}[plane_bits]
     dt = {4: np.uint8, 8: np.int8, 12: np.uint8}[plane_bits]
     esc_shape = {4: (80,), 8: (16, 2), 12: (16, 2)}[plane_bits]
-    b = {
+    return {
         "is12": np.zeros((n_win, S, win, 2, shp), dt),
         "esc": np.zeros((n_win, S, win, 2) + esc_shape,
                         np.int8 if plane_bits == 4 else np.int16),
@@ -679,6 +685,14 @@ def _unpack_chunk(bodies, Gs, S, win, plane_bits, exp_bytes):
         "mx": np.zeros((n_win, S, win, 2), np.uint8),
         "smode": np.zeros((n_win, S, win, 64), np.uint8),
     }
+
+
+def unpack_into(b: dict, bodies, Gs, S, win, plane_bits, exp_bytes):
+    """C++ unpack of the streams into zeroed planes b (plane_buffers' shapes
+    for this family), one thread a stream: the per-stream error flags, or
+    None if a granule-channel overflows the planes' sideband or exponent
+    range."""
+    from .bitstream.native import unpack_native_into12
     errs = [np.zeros(g, np.int16) for g in Gs]
 
     def one(k):
@@ -690,7 +704,7 @@ def _unpack_chunk(bodies, Gs, S, win, plane_bits, exp_bytes):
     # streams are independent and the C call releases the GIL
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
         ok = all(list(ex.map(one, range(len(bodies)))))
-    return (b, errs) if ok else None
+    return errs if ok else None
 
 
 def window_segments(n: int, k: int) -> list:

@@ -267,7 +267,7 @@ def test_device_defaults_to_cuda_and_is_passed_down(files, monkeypatch):
                  ["play", f, "--segments"], ["play", f, "--normalize"],
                  ["play", f, files["sweep"]], ["practice", f],
                  ["segments", f], ["split", f], ["loudness", f],
-                 ["transcode", f]):
+                 ["transcode", f], ["bench"]):
         with pytest.raises(RuntimeError, match="(?i)device"):
             run(port_cli, argv + ["--device", "nosuchdevice"])
 
@@ -279,7 +279,7 @@ def test_help_lists_the_subcommands():
     assert r.returncode == 0, r.stderr
     assert "--device" in r.stdout
     assert ("{decode,play,info,practice,segments,encode,transcode,split,"
-            "loudness}") in r.stdout
+            "loudness,bench}") in r.stdout
 
 
 def test_console_script_is_registered():
@@ -303,8 +303,26 @@ def test_api_surface():
     public = {n for n in vars(mp3tpu.api) if not n.startswith("_")
               and callable(getattr(mp3tpu.api, n))}
     assert len(public) == 14 and public <= set(vars(api))
-    with pytest.raises(AttributeError):
-        mp3tpu_torch.bench
+    importlib.import_module("mp3tpu_torch.bench")
+    assert callable(mp3tpu_torch.bench.main)
+
+
+def test_bench(monkeypatch):
+    """`bench` runs mp3tpu_torch.bench.main in this process (the JAX CLI runs
+    the repository's bench.py): at cut sizes on the CPU it prints the
+    headline last, with the API figures unless --no-api."""
+    from mp3tpu_torch import bench
+    from test_torch_bench import CUT, run_lines
+    monkeypatch.setattr(bench, "SIZES", dict(CUT))   # chunks of 4: small_chunks
+    lines = run_lines(port_cli.main, ["bench", "--device", "cpu", "--reps", "1"])
+    assert lines[-1]["metric"] == "aggregate_decode_realtime_factor"
+    assert lines[-1]["checked"] is True
+    d = lines[-1]["detail"]
+    assert d["device"] == "cpu" and d["runs_x"] == [lines[-1]["value"]]
+    assert "api_device_batch_x" in d
+    lines = run_lines(port_cli.main, ["--device", "cpu", "bench", "--reps", "1",
+                                      "--no-api"])
+    assert len(lines) == 1 and "api_device_batch_x" not in lines[0]["detail"]
 
 
 def test_init_cpu_sets_config_and_warms():

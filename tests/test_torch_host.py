@@ -34,35 +34,56 @@ from mp3tpu_torch.container import frames, id3, xing
 from mp3tpu_torch.kernels import build
 from mp3tpu_torch.oracle import decoder as oracle
 
-CLIPS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_clips")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CLIPS = os.path.join(REPO, "tests", "torch_clips")
 CLIP_S, TRACK_S, SR = 10.0, 60.0, 44100
 
 
-# ---- the committed clips: chip_smoke.py's inputs, as the encoder made them
+# ---- the committed clips: the inputs of chip_smoke.py and mp3tpu_torch.bench,
+# as the encoder made them
+
+def bench_signal() -> np.ndarray:
+    """bench.py's 10 s stereo signal (bench.py:58-65, bench_configs._signal),
+    clipped as bench.py:66 clips it for its fixture."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "bench_configs", os.path.join(REPO, "bench_configs.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return np.clip(mod._signal(CLIP_S), -0.99, 0.99)
+
 
 def clip_pcm(name: str) -> tuple:
     """(PCM, encode_pcm keyword arguments) of one committed clip."""
+    cbr = {"bitrate": 128, "noise_shaping": False}
     if name == "track60":  # 20 s each of the three clips' signals
         third = TRACK_S / 3
         sig = np.concatenate([fixtures.tone_sweep(third, SR),
                               fixtures.transients(third, SR),
                               fixtures.tonal_stereo(third, SR)])
-        return sig, {"short_blocks": True, "joint_stereo": True}
-    return {"sweep": (fixtures.tone_sweep(CLIP_S, SR), {}),
+        return sig, {**cbr, "short_blocks": True, "joint_stereo": True}
+    if name.startswith("bench_"):
+        # mp3tpu_torch.bench's decode inputs (bench.py's CBR 128k joint
+        # stereo fixture and bench_configs.py's VBR joint stereo one, made
+        # here instead of by LAME), noise shaping on as LAME's is
+        rate = {"bitrate": 128} if name == "bench_cbr128" else {"vbr_quality": 4}
+        return bench_signal(), {**rate, "joint_stereo": True,
+                                "noise_shaping": True}
+    return {"sweep": (fixtures.tone_sweep(CLIP_S, SR), cbr),
             "transients": (fixtures.transients(CLIP_S, SR),
-                           {"short_blocks": True}),
+                           {**cbr, "short_blocks": True}),
             "tonal": (fixtures.tonal_stereo(CLIP_S, SR),
-                      {"joint_stereo": True})}[name]
+                      {**cbr, "joint_stereo": True})}[name]
 
 
 def encode_clip(name: str) -> bytes:
     from mp3tpu.encoder import encode_pcm
     sig, kw = clip_pcm(name)
-    return encode_pcm(sig, SR, bitrate=128, noise_shaping=False,
-                      device_transform=False, device_loops=False, **kw)
+    return encode_pcm(sig, SR, device_transform=False, device_loops=False, **kw)
 
 
-CLIP_NAMES = ("sweep", "transients", "tonal", "track60")
+CLIP_NAMES = ("sweep", "transients", "tonal", "track60", "bench_cbr128",
+              "bench_vbr")
 
 
 @pytest.mark.parametrize("name", CLIP_NAMES)
@@ -78,8 +99,7 @@ def test_port_reencodes_committed_clip_byte_identical(name):
     import mp3tpu_torch
     sig, kw = clip_pcm(name)
     with open(os.path.join(CLIPS, f"{name}.mp3"), "rb") as f:
-        assert mp3tpu_torch.encode(sig, SR, bitrate=128, noise_shaping=False,
-                                   device="cpu", device_loops=False,
+        assert mp3tpu_torch.encode(sig, SR, device="cpu", device_loops=False,
                                    **kw) == f.read()
 
 

@@ -2,8 +2,8 @@
 chip_smoke.py, imports JAX, the JAX package mp3tpu (any of it) or the test
 fixtures, and a process where neither JAX nor mp3tpu can be imported
 decodes, batch-decodes (to the host and to the device-resident handle), plays,
-scans levels and segments in batches, encodes, transcodes and runs the command
-line with the port, as on a GPU host without them."""
+scans levels and segments in batches, encodes, transcodes, runs the command
+line and the bench with the port, as on a GPU host without them."""
 import json
 import os
 import re
@@ -39,7 +39,7 @@ def test_port_sources_import_no_jax():
              if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) >= 10
     names = {os.path.relpath(f, PORT) for f in files}
-    assert {"cli.py", os.path.join("utils", "profiling.py"), "api.py",
+    assert {"cli.py", "bench.py", os.path.join("utils", "profiling.py"), "api.py",
             "transfer.py", os.path.join("parallel", "mesh.py"),
             os.path.join("parallel", "distributed.py"),
             os.path.join("kernels", "synth.py")} <= names
@@ -86,6 +86,9 @@ def test_decodes_without_jax(tmp_path):
         f"open({str(tmp_path / 'tc.mp3')!r}, 'wb').write(tc)\n"
         "from mp3tpu_torch import cli\n"
         f"cli.main(['info', {str(src)!r}, '--device', 'cpu'])\n"
+        "from mp3tpu_torch import bench\n"
+        "bench.SIZES.update(streams=2, win=8, frames=40)\n"
+        "cli.main(['bench', '--device', 'cpu', '--reps', '1', '--no-api'])\n"
         "assert sys.modules['jax'] is None and sys.modules['mp3tpu'] is None\n"
         "print('ok', sr)\n")
     # one OpenMP thread, like the test workers (test_torch_decode.py)
@@ -94,8 +97,10 @@ def test_decodes_without_jax(tmp_path):
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    info, ok = r.stdout.strip().splitlines()
+    info, head, ok = r.stdout.strip().splitlines()
     assert json.loads(info)["sample_rate"] == 44100
+    head = json.loads(head)
+    assert head["metric"] == "aggregate_decode_realtime_factor" and head["checked"]
     assert ok.split() == ["ok", "44100"]
     want, _ = mp3tpu_torch.decode(data, device="cpu")
     assert np.array_equal(np.load(tmp_path / "pcm.npy"), want)
