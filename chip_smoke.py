@@ -15,8 +15,9 @@ failure raises and the script exits non-zero:
      type, bit-identity across launches and batch sizes, zero pairs), then
      against their plain versions at the shapes and types each path hands
      them (KERNEL_CASES: the player's S=1, decode_batch's and the
-     scheduler's S=64, config 3's S=256, windows of 32 granules; the
-     chunked single-file decode's 36 and 18 rows of 130 granules), with the
+     scheduler's S=64, the soak's S=8, config 3's S=256, windows of 32
+     granules; the chunked single-file decode's 36 and 18 rows of 130
+     granules), with the
      times (warm, and with a cold L2 from 2,048 pairs up), the bytes moved,
      the least time the card could take for them and the share of it
      reached; then the synthesis kernel (C6-C7, synth_backend) through
@@ -60,7 +61,16 @@ failure raises and the script exits non-zero:
   9. scheduler: decode_batch_streams of the 64 streams at 64 slots against
      decode_batch, and decode_batch with decode.use_native=False, which
      goes through the scheduler;
- 10. encode: on the card, with no fallback: the bit count against vcount and
+ 10. soak: mp3tpu_torch.soak's session on the card (SOAK_S seconds of
+     audio, about 480 streams of the six pool signals encoded by
+     encode_batch on the card, in waves of 24 over 8 slots; every 7th
+     stream corrupted by byte flips, a cut or a broken header; ring
+     consumer threads on every 13th), held by soak.check_report: exact
+     accounting of every stream, the fault counters, every clean stream
+     that no ring drains within 1 LSB of decode_file as it arrives, no
+     underrun, no decay, host RSS and device memory bounded after the
+     first wave; fused_z and synth each launched once a step;
+ 11. encode: on the card, with no fallback: the bit count against vcount and
      the device emitter against the C++ row emitter on CUDA tensors (random
      rows of every layout and rows the loops produced); encode_batch of 64,
      16 and 1 streams x 10 s of int16-origin PCM (the port's decode of the
@@ -73,14 +83,14 @@ failure raises and the script exits non-zero:
      kbps == encode_batch of the handle's .numpy(), without the PCM's copy
      to the host, beside the same through the host; encode() of the 60 s
      track, and 2 s of it with device_loops on and off;
- 11. cli: mp3tpu_torch.cli.main in this process, on the card by default:
+ 12. cli: mp3tpu_torch.cli.main in this process, on the card by default:
      info, decode (the WAV equals decode()), loudness, segments, split (WAV
      and MP3 clips), transcode, play --loop to a WAV;
- 12. bench: `mp3tpu-torch bench --configs --reps 1` in this process (the
+ 13. bench: `mp3tpu-torch bench --configs --reps 1` in this process (the
      headline, config 3 with the decode_files figures, and one line for each
      of configs 1, 2, 3, 4 and the three of 5), every line parsed and held
      to its names, its checks and this card;
- 13. multichip: 8 streams of about 1 s, sharded over a mesh of every GPU
+ 14. multichip: 8 streams of about 1 s, sharded over a mesh of every GPU
      present and over a mesh of two shards on cuda:0: one window of the
      granule chain (float32 PCM and state bit for bit the unsharded call's),
      the packed 4-bit arenas -> window loop -> resample to 48 kHz step
@@ -93,10 +103,10 @@ failure raises and the script exits non-zero:
      results.
 The kernels' JSON record gives each kernel's launches in the runs of
 decode_batch, the device-resident batch, the full play, the chunked decode,
-the scheduler, the transcode, the bench and the sharded steps, each counted
-from 0 just before the run,
-and apart from them the calls of the kernel phase. The line before the last is the card's;
-the last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
+the scheduler, the soak session, the transcode, the bench and the sharded
+steps, each counted from 0 just before the run, and apart from them the
+calls of the kernel phase. The line before the last is the card's; the last
+line is {"ok": true, "device": {...}}. Imports nothing of JAX and
 nothing of mp3tpu (the JAX package); needs no LAME.
 
     python3 chip_smoke.py --profile
@@ -109,7 +119,7 @@ row-block sizes, and device_loops on against off by stream length.
 
     python3 chip_smoke.py --encode
 
-instead runs only the encode phase (10), after the build.
+instead runs only the encode phase (11), after the build.
 
     python3 chip_smoke.py --kernel
 
@@ -267,6 +277,7 @@ KERNEL_CASES = (
     (64, WIN, ("int32", "int32"), "decode_batch, 4-bit arenas"),
     (64, WIN, ("int32", "int16"), "decode_batch, widened planes"),
     (64, WIN, ("int16", "int16"), "scheduler"),
+    (8, WIN, ("int16", "int16"), "soak: the scheduler at 8 slots"),
     (256, WIN, ("int32", "int32"), "config 3"),
     (36, CHUNK_G, ("int16", "int16"), "chunked single-file decode"),
     (18, CHUNK_G, ("int16", "int16"), "chunked single-file decode, 2 segments"),
@@ -360,6 +371,7 @@ def phase_kernel(clips: dict, card: str):
 SYNTH_CASES = (
     (1, WIN, "player"),
     (64, WIN, "decode_batch, scheduler, transcode"),
+    (8, WIN, "soak: the scheduler at 8 slots"),
     (256, WIN, "config 3"),
     (36, CHUNK_G, "chunked single-file decode"),
 )
@@ -1582,6 +1594,41 @@ def phase_scheduler(batch: list, fast: list, card: str) -> dict:
     return launches
 
 
+SOAK_S = 3600.0            # audio seconds of the soak session
+
+
+def phase_soak(card: str) -> dict:
+    """mp3tpu_torch.soak's session on the card, held by check_report.
+    Returns the kernels' launches in the session: the set-up (the pool's
+    encode, the reference decodes, the warm-up window) runs before the
+    counts are set to 0."""
+    from mp3tpu_torch import soak
+    t0 = time.perf_counter()
+    prep = soak.prepare("cuda")
+    log(f"soak: pool of {len(prep['pool'])} clips encoded on the card, "
+        f"decoded for reference, scheduler warmed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    rep = soak.run_soak(total_audio_s=SOAK_S, device="cuda", prepared=prep)
+    launches = read_counts()
+    log("soak: " + json.dumps({k: v for k, v in rep.items()
+                               if k not in ("waves", "accounting")}))
+    soak.check_report(rep)
+    log(f"soak: {rep['n_streams']} streams, {SOAK_S:g} s of audio in "
+        f"{rep['session_wall_s']:.2f} s over {len(rep['waves'])} waves, "
+        f"{rep['steps']} steps; waves {rep['min_wave_x']:.1f}x at the least, "
+        f"thirds {rep['first_third_x']:.1f}x / {rep['last_third_x']:.1f}x; "
+        f"growth after wave 1: RSS {rep['rss_growth_post_warmup_mb']:.1f} MB, "
+        f"allocated {rep['device_alloc_growth_post_warmup_mb']:.4f} MiB, "
+        f"reserved {rep['device_reserved_growth_post_warmup_mb']:.1f} MiB; "
+        f"launches {launches}; check_report held ({card})")
+    for name in ("fused_z", "synth"):
+        if launches[name] != rep["steps"]:
+            raise AssertionError(f"soak: {name} launched {launches[name]} "
+                                 f"times in {rep['steps']} steps")
+    return launches
+
+
 # ---------------------------------------------------------------- multichip
 
 MC_STREAMS = 8
@@ -2001,6 +2048,7 @@ def main() -> int:
     paths["player"] = timed("player", phase_player, track, card)
     paths["chunked"] = timed("chunked", phase_chunked, track, card)
     paths["scheduler"] = timed("scheduler", phase_scheduler, batch, fast, card)
+    paths["soak"] = timed("soak", phase_soak, card)
     paths["transcode"] = timed("encode", phase_encode, clips, track, batch,
                                fast, card)
     timed("cli", phase_cli, clips, track, card)

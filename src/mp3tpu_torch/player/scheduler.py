@@ -141,6 +141,12 @@ class StreamScheduler:
     def n_active(self) -> int:
         return sum(s.active for s in self.slots)
 
+    @property
+    def steps(self) -> int:
+        """Windows dispatched so far: one device step (one launch of each
+        kernel of decode_window_i16) each."""
+        return self._seq
+
     # -------------------------------------------------------------- step
     def _pack_dispatch(self):
         """Pack and enqueue one window. Returns a routing plan (the PCM's

@@ -3,7 +3,8 @@ chip_smoke.py, imports JAX, the JAX package mp3tpu (any of it) or the test
 fixtures, and a process where neither JAX nor mp3tpu can be imported
 decodes, batch-decodes (to the host and to the device-resident handle), plays,
 scans levels and segments in batches, encodes, transcodes, runs the command
-line and the bench with the port, as on a GPU host without them."""
+line, the bench and the scheduler soak with the port, as on a GPU host
+without them. The port never imports the JAX harness tools/soak.py either."""
 import json
 import os
 import re
@@ -20,7 +21,8 @@ PORT = os.path.join(REPO, "src", "mp3tpu_torch")
 IMPORT = re.compile(r"^\s*(?:from\s+(\S+)\s+import|import\s+([^#\n]+))", re.M)
 # importlib.import_module("...") and __import__("...") by name
 DYNAMIC = re.compile(r"""(?:import_module|__import__)\(\s*['"]([^'"]+)['"]""")
-FORBIDDEN = ("jax", "mp3tpu", "fixtures")
+FORBIDDEN = ("jax", "mp3tpu", "fixtures", "soak")
+CLIP = os.path.join(REPO, "tests", "torch_clips", "tonal.mp3")  # 10 s
 
 
 def imported_modules(path):
@@ -39,8 +41,8 @@ def test_port_sources_import_no_jax():
              if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) >= 10
     names = {os.path.relpath(f, PORT) for f in files}
-    assert {"cli.py", "bench.py", os.path.join("utils", "profiling.py"), "api.py",
-            "transfer.py", os.path.join("parallel", "mesh.py"),
+    assert {"cli.py", "bench.py", "soak.py", "api.py", "transfer.py",
+            os.path.join("utils", "profiling.py"), os.path.join("parallel", "mesh.py"),
             os.path.join("parallel", "distributed.py"),
             os.path.join("kernels", "synth.py")} <= names
     assert {os.path.join("encoder", f) for f in (
@@ -89,6 +91,14 @@ def test_decodes_without_jax(tmp_path):
         "from mp3tpu_torch import bench\n"
         "bench.SIZES.update(streams=2, win=8, frames=40)\n"
         "cli.main(['bench', '--device', 'cpu', '--reps', '1', '--no-api'])\n"
+        "from mp3tpu_torch import soak\n"
+        f"rep = soak.run_soak(total_audio_s=3.0, device='cpu', "
+        f"pool=[open({CLIP!r}, 'rb').read()])\n"
+        "assert rep['n_streams'] == rep['clean_streams_checked'] == 1\n"
+        "[[_, kind, sink, want, got]] = rep['accounting']\n"
+        "assert (kind, sink) == ('clean', 'check') and want == got > 0\n"
+        "assert rep['clean_max_abs_lsb'] == 0 and rep['clean_misaligned'] == 0\n"
+        "assert rep['card'] == 'cpu' and rep['steps'] > 0\n"
         "assert sys.modules['jax'] is None and sys.modules['mp3tpu'] is None\n"
         "print('ok', sr)\n")
     # one OpenMP thread, like the test workers (test_torch_decode.py)
