@@ -27,7 +27,16 @@ failure raises and the script exits non-zero:
      against both plain versions (the FIR as one matmul; the factored
      matrixing + window) at SYNTH_CASES, with its registers, spills, shared
      memory and blocks per SM, its times (warm and with a cold L2), the
-     plain version's, one conv1d call's and its bound;
+     plain version's, one conv1d call's and its bound; then the device cases
+     of mp3tpu_torch.sanitize (every plane family at 1 x 1, 8 x 32, 64 x 32
+     and 36 x 130, pair counts around the persistent grid times its ring's
+     stages, symbols and exponents at the extremes csrc/unpack.cpp writes,
+     stereo bytes beyond the palette; the synthesis around its tile, loud,
+     and split across windows; decode_batch of corrupted and junk streams),
+     each held to its plain version: the cases that `python -m
+     mp3tpu_torch.sanitize --device` runs under compute-sanitizer, where
+     that tool supports the card (PERF.md: on the H100 measured it answers
+     "Device not supported", so no phase here runs it);
   4. decode_batch: 64 streams of the three 10 s clips of tests/torch_clips
      (made by mp3tpu's own encoder and committed), through
      mp3tpu_torch.decode_batch: lengths, kernel launches (one per live
@@ -364,7 +373,24 @@ def phase_kernel(clips: dict, card: str):
                 "bound_share": share_cold if cold else share,
                 "bound_share_warm_l2": share})
     rec["synth"] = synth_cases(tables, card)
+    device_cases()
     return rec, read_counts()
+
+
+def device_cases() -> None:
+    """mp3tpu_torch.sanitize's device cases on the card, each held to its
+    plain version (sanitize.run_device_cases raises on the first that is
+    not); one JSON line: the cases, the worst over its tolerance and the
+    seconds."""
+    from mp3tpu_torch import sanitize
+    t0 = time.perf_counter()
+    recs = sanitize.run_device_cases("cuda")
+    by_group = {}
+    for r in recs:
+        key = r.get("kernel", "decode_batch")
+        by_group[key] = max(by_group.get(key, 0.0), r.get("worst_over_tol", 0.0))
+    log(json.dumps({"device_cases": len(recs), "worst_over_tol": by_group,
+                    "seconds": round(time.perf_counter() - t0, 2)}))
 
 
 # the synthesis kernel's shapes: (S rows of G granules, the path)

@@ -1,7 +1,12 @@
 """Build a native source of this package at first use: a CUDA source with
 nvcc (the kernels, loaded with ctypes by their wrappers) or the C++ host
 library with g++ (the unpacker, the encoder's row emitter and the stream mux
-in one library, loaded by bitstream/native.py).
+in one library, loaded by bitstream/native.py). Beside them, for
+mp3tpu_torch/sanitize.py only: the same host library under AddressSanitizer
+and UndefinedBehaviorSanitizer (build_sanitized), and the executables of the
+harnesses csrc/fuzz_main.cpp and csrc/prof_main.cpp, each linked with
+unpack.cpp (build_tool); each has a hash of its own, and the production
+library's flags and name do not change for them.
 
 Each source in csrc/ has a plain C interface and includes no PyTorch header,
 so it compiles in seconds. The sources are package data: csrc/ lies beside the
@@ -38,6 +43,19 @@ CXX_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-std=c++17", "-fPIC",
 # sources compiled into the library of the source that names it, as the
 # Makefile links them into one
 COMPANIONS = {"unpack.cpp": ("encode_rows.cpp", "mux_stream.cpp")}
+# src/mp3tpu/native/Makefile's asan target: the host library under
+# AddressSanitizer and UndefinedBehaviorSanitizer
+SANITIZE_FLAGS = ("-O1", "-g", "-std=c++17", "-fPIC",
+                  "-fsanitize=address,undefined")
+# the harnesses of csrc/, each linked with unpack.cpp into an executable: the
+# fuzz harness under the sanitizers (the Makefile's fuzz_driver target), the
+# section profiler at the production optimisation with its cycle counters
+# compiled in
+TOOL_FLAGS = {
+    "fuzz_main.cpp": SANITIZE_FLAGS,
+    "prof_main.cpp": ("-O3", "-march=native", "-funroll-loops", "-std=c++17",
+                      "-DMP3TPU_PROF_SECTIONS"),
+}
 
 
 def build_dir() -> Path:
@@ -103,29 +121,57 @@ def build(source: str, defines: tuple = ()) -> Path:
     cuda = src.suffix == ".cu"
     flags = (NVCC_FLAGS if cuda else CXX_FLAGS) + tuple(f"-D{d}" for d in defines)
     srcs = [src] + [CSRC / c for c in COMPANIONS.get(source, ())]
+    return _compile(src.stem, srcs, flags, cuda=cuda, cpu=not cuda, suffix=".so")
+
+
+def build_sanitized() -> Path:
+    """The host library (csrc/unpack.cpp and its COMPANIONS) under
+    AddressSanitizer and UndefinedBehaviorSanitizer (SANITIZE_FLAGS), named
+    unpack-asan-<hash>.so. A process that loads it must have the sanitizer's
+    runtime loaded first (LD_PRELOAD, as sanitize.py's children do)."""
+    srcs = [CSRC / "unpack.cpp"] + [CSRC / c for c in COMPANIONS["unpack.cpp"]]
+    return _compile("unpack-asan", srcs, SANITIZE_FLAGS + ("-shared",),
+                    cuda=False, cpu=False, suffix=".so")
+
+
+def build_tool(source: str) -> Path:
+    """The executable of csrc/`source` (a key of TOOL_FLAGS) linked with
+    csrc/unpack.cpp, built with its TOOL_FLAGS; return its path."""
+    flags = TOOL_FLAGS[source]
+    srcs = [CSRC / source, CSRC / "unpack.cpp"]
+    return _compile(Path(source).stem, srcs, flags, cuda=False,
+                    cpu="-march=native" in flags, suffix="")
+
+
+def _compile(stem: str, srcs: list, flags: tuple, cuda: bool, cpu: bool,
+             suffix: str) -> Path:
+    """Compile `srcs` with `flags` into build_dir()/<stem>-<hash><suffix>,
+    unless it exists; the hash covers the flags, the sources, every header
+    of csrc/ and, where `cpu`, the host CPU's features."""
     digest = hashlib.sha256(" ".join(flags).encode())
     for f in srcs:
         digest.update(f.read_bytes())
     for h in sorted(CSRC.glob("*.h")):
         digest.update(h.read_bytes())
-    if not cuda:
+    if cpu:
         digest.update(_cpu_features())
-    out = build_dir() / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+    name = f"{stem}-{digest.hexdigest()[:16]}"
+    out = build_dir() / f"{name}{suffix}"
     if out.exists():
         return out
-    with build_lock(out.stem):
+    with build_lock(name):
         if out.exists():  # built by another process while this one waited
             return out
         if cuda:
             compiler = nvcc_path()
         elif (compiler := cxx_path()) is None:
-            raise RuntimeError(f"no g++ to build {src}")
+            raise RuntimeError(f"no g++ to build {srcs[0]}")
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.run([compiler, *flags, "-o", str(tmp), *map(str, srcs)],
                               capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        (build_dir() / f"{name}.log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(f"{compiler} failed to build {src}:\n"
+            raise RuntimeError(f"{compiler} failed to build {srcs[0]}:\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
     return out

@@ -140,14 +140,22 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(entry: str, out_tail: tuple, is_, exp, block_type, mixed, smode,
-            tables: DeviceTables, lib: ctypes.CDLL | None = None) -> torch.Tensor:
+            tables: DeviceTables, lib: ctypes.CDLL | None = None,
+            out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch one instantiation of the kernel of csrc/fused_z.cu (`entry`,
     writing float32 [S, G, 2, *out_tail]) on the current CUDA stream, from
-    `lib` (default: _library()). The symbols go in with the types they
-    have; nothing is cast first."""
+    `lib` (default: _library()), into `out` where given (a contiguous,
+    16-byte aligned tensor of that shape: sanitize.py's guarded outputs).
+    The symbols go in with the types they have; nothing is cast first."""
     S, G = is_.shape[:2]
     dev = is_.device
-    out = torch.empty((S, G, 2) + out_tail, dtype=torch.float32, device=dev)
+    shape = (S, G, 2) + out_tail
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    elif (tuple(out.shape) != shape or out.dtype != torch.float32
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"out: {tuple(out.shape)} {out.dtype}, expected a "
+                         f"contiguous, 16-byte aligned float32 {shape}")
     if S * G == 0:
         return out
     is_, exp, smode = _aligned(is_), _aligned(exp), _aligned(smode)

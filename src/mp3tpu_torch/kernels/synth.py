@@ -104,19 +104,27 @@ def _check(z, state, tables):
         raise ValueError(f"synth_backend runs on cpu or cuda, not {z.device}")
 
 
-def _launch(z, state, tables: DeviceTables, lib=None):
+def _launch(z, state, tables: DeviceTables, lib=None, out=None):
     """Launch the kernel of csrc/synth.cu (of `lib`, a variant's library,
     where given) on the current CUDA stream -> (pcm [S, G*576, 2] as the
     view of a channel-planar [S, 2, G*576] tensor, as the plain version
-    returns it; new state)."""
+    returns it; new state). `out`, where given, is the (channel-planar pcm,
+    new hist) pair the kernel writes (sanitize.py's guarded outputs)."""
     S, G = z.shape[:2]
     dev = z.device
     # the kernel reads these by TMA bulk copies, from 16-byte aligned rows
     z, overlap, hist = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
                         else t.clone(memory_format=torch.contiguous_format)
                         for t in (z, state["overlap"], state["hist"]))
-    pcm = torch.empty((S, 2, G * 576), dtype=torch.float32, device=dev)
-    new_hist = torch.empty_like(hist)
+    if out is None:
+        out = (torch.empty((S, 2, G * 576), dtype=torch.float32, device=dev),
+               torch.empty_like(hist))
+    pcm, new_hist = out
+    for t, shape in ((pcm, (S, 2, G * 576)), (new_hist, tuple(hist.shape))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"out: {tuple(t.shape)} {t.dtype}, expected a "
+                             f"contiguous, 16-byte aligned float32 {shape}")
     lib = lib or _library()
     with torch.cuda.device(dev):
         rc = lib.mp3tpu_synth(

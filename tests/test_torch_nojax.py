@@ -41,7 +41,7 @@ def test_port_sources_import_no_jax():
              if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) >= 10
     names = {os.path.relpath(f, PORT) for f in files}
-    assert {"cli.py", "bench.py", "soak.py", "api.py", "transfer.py",
+    assert {"cli.py", "bench.py", "soak.py", "sanitize.py", "api.py", "transfer.py",
             os.path.join("utils", "profiling.py"), os.path.join("parallel", "mesh.py"),
             os.path.join("parallel", "distributed.py"),
             os.path.join("kernels", "synth.py")} <= names
