@@ -7,9 +7,10 @@ Phases, each printing its numbers and its seconds on lines of its own; any
 failure raises and the script exits non-zero:
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: the port's C++ host library (csrc/unpack.cpp, encode_rows.cpp
-     and mux_stream.cpp, g++) and the CUDA kernels (csrc/fused_z.cu and
-     csrc/synth.cu, one nvcc each), all at once; the run fails if any does not
-     build or load;
+     and mux_stream.cpp, g++), the unpacker's section profiler
+     (csrc/prof_main.cpp, g++, for the tools phase) and the CUDA kernels
+     (csrc/fused_z.cu, csrc/synth.cu and csrc/huffman_dfa.cu, one nvcc each),
+     all at once; the run fails if any does not build or load;
   3. kernel vs plain: fused_pipeline_z (C1-C5) and fused_frontend (C1-C4)
      through kernels/selfcheck.py's checks (odd pair counts, every input
      type, bit-identity across launches and batch sizes, zero pairs), then
@@ -27,12 +28,19 @@ failure raises and the script exits non-zero:
      against both plain versions (the FIR as one matmul; the factored
      matrixing + window) at SYNTH_CASES, with its registers, spills, shared
      memory and blocks per SM, its times (warm and with a cold L2), the
-     plain version's, one conv1d call's and its bound; then the device cases
+     plain version's, one conv1d call's and its bound; then the Huffman
+     chain (csrc/huffman_dfa.cu, dfa_count) timed with its bound and its
+     plain version at the spike's two shapes (its default case and the
+     bench's shape); then the device cases
      of mp3tpu_torch.sanitize (every plane family at 1 x 1, 8 x 32, 64 x 32
      and 36 x 130, pair counts around the persistent grid times its ring's
      stages, symbols and exponents at the extremes csrc/unpack.cpp writes,
      stereo bytes beyond the palette; the synthesis around its tile, loud,
-     and split across windows; decode_batch of corrupted and junk streams),
+     and split across windows; the chain count for count at every pairing
+     of 1, 31, 33, 4,096 and 131,072 rows and its grid's width -1/0/+1 with
+     8, 256, 259, 264 and 2,048 bits through count1-A and tables 13, 24 and
+     31, and on rows of real codewords against their number; decode_batch
+     of corrupted and junk streams),
      each held to its plain version: the cases that `python -m
      mp3tpu_torch.sanitize --device` runs under compute-sanitizer, where
      that tool supports the card (PERF.md: on the H100 measured it answers
@@ -99,7 +107,12 @@ failure raises and the script exits non-zero:
      headline, config 3 with the decode_files figures, and one line for each
      of configs 1, 2, 3, 4 and the three of 5), every line parsed and held
      to its names, its checks and this card;
- 14. multichip: 8 streams of about 1 s, sharded over a mesh of every GPU
+ 14. tools: each of mp3tpu_torch.tools' six measurement tools once, at a
+     reduced size (TOOL_RUNS: the spike's default case, bench_repeat twice,
+     bench_segment of 16 streams, d2h_overlap_timing at K 1 and 2,
+     encode_single_profile once, rate_loop_hist of 4 x 2 s), each line held
+     to its tool's KEYS and this card, the tools' own checks raising;
+ 15. multichip: 8 streams of about 1 s, sharded over a mesh of every GPU
      present and over a mesh of two shards on cuda:0: one window of the
      granule chain (float32 PCM and state bit for bit the unsharded call's),
      the packed 4-bit arenas -> window loop -> resample to 48 kHz step
@@ -112,9 +125,11 @@ failure raises and the script exits non-zero:
      results.
 The kernels' JSON record gives each kernel's launches in the runs of
 decode_batch, the device-resident batch, the full play, the chunked decode,
-the scheduler, the soak session, the transcode, the bench and the sharded
-steps, each counted from 0 just before the run, and apart from them the
-calls of the kernel phase. The line before the last is the card's; the last
+the scheduler, the soak session, the transcode, the bench, the tools and
+the sharded steps, each counted from 0 just before the run, and apart from
+them the calls of the kernel phase. Only the tools path launches the
+Huffman chain (huffman_dfa: the spike measures it; no decode runs it); no
+path launches fused_frontend. The line before the last is the card's; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX and
 nothing of mp3tpu (the JAX package); needs no LAME.
 
@@ -165,33 +180,12 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
-    """Milliseconds per call of fn(): the median over `reps` timings (CUDA
-    events) of `inner` back-to-back calls each, after one warm-up. Each
-    timing starts behind a 20 ms spin of the card, during which the host
-    enqueues the calls: the events then time the device's work, not the
-    host's launch rate."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at 1.98 GHz
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return float(np.median(times))
-
-
 def _wrappers() -> dict:
     from mp3tpu_torch.kernels import fused_z as fz
+    from mp3tpu_torch.kernels import huffman_dfa as hd
     from mp3tpu_torch.kernels import synth as sy
     return {"fused_z": fz.fused_pipeline_z, "fused_frontend": fz.fused_frontend,
-            "synth": sy.synth_backend}
+            "synth": sy.synth_backend, "huffman_dfa": hd.dfa_count}
 
 
 def zero_counts() -> None:
@@ -236,11 +230,11 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
-    """The C++ unpacker and the two CUDA libraries, built at once; raises if
-    any does not build or load."""
+    """The C++ unpacker, the section profiler and the three CUDA libraries,
+    built at once; raises if any does not build or load."""
     from concurrent.futures import ThreadPoolExecutor
     from mp3tpu_torch.bitstream import native
-    from mp3tpu_torch.kernels import build, fused_z, synth
+    from mp3tpu_torch.kernels import build, fused_z, huffman_dfa, synth
 
     def timed_build(fn):
         t0 = time.perf_counter()
@@ -249,18 +243,24 @@ def phase_build() -> None:
     nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     log(f"build: {nvcc[-1]}")
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(5) as ex:
         unpacker = ex.submit(timed_build, native._load)
+        profiler = ex.submit(timed_build,
+                             lambda: build.build_tool("prof_main.cpp"))
         kernels = ex.submit(timed_build, fused_z._library)
         synthesis = ex.submit(timed_build, synth._library)
+        chain = ex.submit(timed_build, huffman_dfa._library)
         lib, s_unpack = unpacker.result()
+        prof, s_prof = profiler.result()
         _, s_cuda = kernels.result()
         _, s_synth = synthesis.result()
+        _, s_chain = chain.result()
     if lib is None:
         raise RuntimeError("the C++ unpacker did not load (MP3TPU_NO_NATIVE "
                            "set, or no g++)")
+    log(f"build: prof_main.cpp {s_prof:.2f} s -> {os.path.relpath(prof, ROOT)}")
     for src, s in (("unpack.cpp", s_unpack), ("fused_z.cu", s_cuda),
-                   ("synth.cu", s_synth)):
+                   ("synth.cu", s_synth), ("huffman_dfa.cu", s_chain)):
         path = build.build(src)
         log(f"build: {src} {s:.2f} s -> {os.path.relpath(path, ROOT)}")
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -324,6 +324,7 @@ def phase_kernel(clips: dict, card: str):
     with its times (warm and with a cold L2) and its bound: the records of
     the kernel by case, and the kernels' calls made here, which no path's
     count includes."""
+    from mp3tpu_torch.tools import cuda_ms
     from mp3tpu_torch.kernels import selfcheck as sc
     from mp3tpu_torch.kernels.tables import build_tables
     from mp3tpu_torch.pipeline import load_symbols
@@ -373,6 +374,7 @@ def phase_kernel(clips: dict, card: str):
                 "bound_share": share_cold if cold else share,
                 "bound_share_warm_l2": share})
     rec["synth"] = synth_cases(tables, card)
+    rec["huffman_dfa"] = dfa_timings(card)
     device_cases()
     return rec, read_counts()
 
@@ -429,6 +431,7 @@ def synth_cases(tables, card: str) -> list:
     through torch ops around that conv1d (yardsticks timed here and used
     nowhere in the port), beside its bound. Logs the kernel's registers and spills (ptxas), shared memory
     a block and blocks per SM first."""
+    from mp3tpu_torch.tools import cuda_ms
     from mp3tpu_torch.kernels import selfcheck as sc
     from mp3tpu_torch.kernels import synth as sy
     ptx, cfg = ptxas_report("synth.cu", "synth_kernel"), sy.kernel_config()
@@ -517,6 +520,61 @@ def synth_cases(tables, card: str) -> list:
     return out
 
 
+def dfa_timings(card: str) -> list:
+    """The Huffman chain (csrc/huffman_dfa.cu, dfa_count) timed (CUDA
+    events) beside its plain version and its bound at the spike's cases
+    (mp3tpu_torch.tools.device_huffman_spike.cases(): the default case and
+    the bench's shape), each first held to the plain version count for
+    count (device_cases holds it at every case of sanitize.dfa_cases). Logs
+    its registers and spills (ptxas) and its grid first. The records of the
+    timed cases."""
+    from mp3tpu_torch.bench import max_sm_clock_mhz
+    from mp3tpu_torch.kernels import huffman_dfa as hd
+    from mp3tpu_torch.tools import cuda_ms
+    from mp3tpu_torch.tools import device_huffman_spike as spike
+    ptx, cfg = ptxas_report("huffman_dfa.cu", "dfa_count_kernel"), hd.kernel_config()
+    log(f"huffman_dfa kernel: {ptx['registers']} registers, {ptx['spill_stores']}"
+        f" / {ptx['spill_loads']} bytes of spill stores / loads (ptxas), "
+        f"{cfg['threads']} threads a block, {cfg['blocks_per_sm']} blocks per SM "
+        f"(occupancy query): a persistent grid {hd.persistent_width('cuda')} "
+        "rows wide")
+    clock = max_sm_clock_mhz()
+    out = []
+    for case, table, rows, bits, streams in spike.cases():
+        trans, n_states = hd.automaton(table)
+        rb = -(-bits // 8)
+        packed = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 256, (rows, rb), np.uint8)).cuda()
+        tab = torch.from_numpy(trans).cuda()
+        got = hd.dfa_count(packed, tab, bits)
+        if not torch.equal(got, hd.dfa_count_reference(packed, tab, bits)):
+            raise AssertionError(f"huffman_dfa {case} {table}: counts differ")
+        ms = cuda_ms(lambda: hd.dfa_count(packed, tab, bits))
+        plain_ms = cuda_ms(lambda: hd.dfa_count_reference(packed, tab, bits),
+                           reps=3, inner=1)
+        b = hd.bound(rows, bits, rb, n_states, clock)
+        share = b["bound_us"] / (1e3 * ms)
+        log(f"kernel huffman_dfa {case} {table} {rows} rows x {bits} bits: "
+            f"{ms:.4f} ms ({100 * share:.1f}% of the bound; median of 7 x 10 "
+            f"calls), plain {plain_ms:.4f} ms (median of 3 calls); {b['bytes']} "
+            f"bytes, {b['lookups']} lookups of {b['table_bits']} bits, bound "
+            f"{b['bound_us']:.2f} us by {b['bound_by']} at {clock:g} MHz; at "
+            f"one bit a lookup {b['bit_serial_us']:.2f} us "
+            f"({100 * b['bit_serial_us'] / (1e3 * ms):.1f}%) ({card})")
+        out.append({
+            "case": case, "table": table, "rows": rows, "bits": bits,
+            "used_by": "mp3tpu_torch.tools.device_huffman_spike (tools)",
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_us"] / 1e3, "bound_by": b["bound_by"],
+            "library_ms": None, "bytes": b["bytes"],
+            "table_bits": b["table_bits"], "lookups": b["lookups"],
+            "sm_clock_mhz": clock, "bound_us": b["bound_us"],
+            "bound_share": share, "bit_serial_bound_us": b["bit_serial_us"],
+            "bit_serial_bound_share": b["bit_serial_us"] / (1e3 * ms),
+            **ptx, **cfg})
+    return out
+
+
 # csrc/fused_z.cu's measurement variants: (name, macros)
 VARIANTS = (("as built", ()),
             ("3 stages", ("MP3TPU_FZ_STAGES=3",)),
@@ -539,6 +597,7 @@ def variants_main(card: str) -> None:
     L2: the synthesis at its four path shapes, C1-C5 and C1-C4 at S=64 and
     S=256 (int32 symbols). Only the variants as built must give the
     kernel's bits, and for fused_z every variant but the one without C5."""
+    from mp3tpu_torch.tools import cuda_ms
     from concurrent.futures import ThreadPoolExecutor
     from mp3tpu_torch.kernels import fused_z as fz
     from mp3tpu_torch.kernels import selfcheck as sc
@@ -668,6 +727,7 @@ def window_loop_ms(batch: list, card: str) -> None:
     loop over the live windows, and over the power-of-two bucket of windows
     (the rest silent) that the loop decoded before; CUDA events around the
     whole loop, medians of 7 after a warm-up, in turns."""
+    from mp3tpu_torch.tools import cuda_ms
     from mp3tpu_torch.kernels import pipeline as kp
     from mp3tpu_torch.pipeline import probe_granules, stream_meta, unpack_planes
     bodies = [stream_meta(d)[0] for d in batch]
@@ -1448,6 +1508,52 @@ def phase_bench(card: str) -> dict:
     return launches
 
 
+# mp3tpu_torch.tools' measurement tools at reduced sizes: (tool, keyword
+# arguments of its measure())
+TOOL_RUNS = (
+    ("device_huffman_spike", {"rows": 131072, "bits": 256, "table": "count1a"}),
+    ("bench_repeat", {"times": 2}),
+    ("bench_segment", {"n_streams": 16}),
+    ("d2h_overlap_timing", {"reps": 1, "ks": (1, 2)}),
+    ("encode_single_profile", {"reps": 1}),
+    ("rate_loop_hist", {"streams": 4, "seconds": 2.0}),
+)
+
+
+def phase_tools(card: str) -> dict:
+    """Each of mp3tpu_torch.tools' tools once at TOOL_RUNS' size, on the
+    card: its own checks raise, and every line it prints is held to its
+    tool's KEYS and to this card; the spike's line carries the kernel's time
+    and share of its bound, and config 5's encode took the device encoder.
+    Logs each line; returns the kernels' launches in the phase: the tools
+    path, the one that launches the Huffman chain."""
+    import importlib
+    zero_counts()
+    for name, kw in TOOL_RUNS:
+        mod = importlib.import_module(f"mp3tpu_torch.tools.{name}")
+        t0 = time.perf_counter()
+        out = mod.measure(device="cuda", **kw)
+        lines = out if isinstance(out, list) else [out]
+        for line in lines:
+            if set(line) != set(mod.KEYS) or line["card"] != card:
+                raise AssertionError(f"tools {name}: keys {sorted(line)} or "
+                                     f"card {line['card']!r}, expected "
+                                     f"{sorted(mod.KEYS)} on {card!r}")
+            log(f"tools {name}: {json.dumps(line)}")
+        if name == "device_huffman_spike" and not all(
+                ln["kernel_ms"] > 0 and ln["bound_share"] > 0 for ln in lines):
+            raise AssertionError(f"tools {name}: no time on the card: {lines}")
+        if name == "encode_single_profile" and lines[0]["route"] != "device_loops":
+            raise AssertionError(f"tools {name}: encode took the host path")
+        log(f"tools {name}: {len(lines)} lines in "
+            f"{time.perf_counter() - t0:.2f} s")
+    launches = read_counts()
+    if min(launches["fused_z"], launches["synth"], launches["huffman_dfa"]) <= 0:
+        raise AssertionError(f"tools: a kernel was not launched: {launches}")
+    log(f"tools: launches {launches} ({card})")
+    return launches
+
+
 def read_track() -> bytes:
     """The 60 s stereo 44.1 kHz track of tests/torch_clips: 20 s each of the
     sweep, the transients and the tonal stereo signal, by mp3tpu's
@@ -2079,35 +2185,45 @@ def main() -> int:
                                fast, card)
     timed("cli", phase_cli, clips, track, card)
     paths["bench"] = timed("bench", phase_bench, card)
+    paths["tools"] = timed("tools", phase_tools, card)
     paths["multichip"] = timed("multichip", phase_multichip, clips, card)
 
     # each kernel's launches in the paths' runs, each counted from 0; the
     # kernel phase's calls apart. No path calls fused_frontend (nor its TPU
-    # kernel, in the JAX package), so its path launches read 0.
+    # kernel, in the JAX package), so its path launches read 0; only the
+    # tools path (the spike) launches the Huffman chain.
     # Times, errors and bounds at the shape and types of the decode_batch
     # run counted above (64 streams x 32 granules; widened planes: int32
-    # spectrum, int16 exponents); every case of the kernel phase in "cases".
+    # spectrum, int16 exponents), the chain's at the spike's default case;
+    # every timed case of the kernel phase in "cases".
     replaces = {"fused_z": "src/mp3tpu/kernels/pallas_fused.py:237",
                 "fused_frontend": "src/mp3tpu/kernels/pallas_fused.py:72",
                 "synth": "src/mp3tpu/kernels/pipeline.py:192 (jnp, no Pallas "
-                         "kernel)"}
-    sources = {"synth": "src/mp3tpu_torch/csrc/synth.cu"}
+                         "kernel)",
+                "huffman_dfa": "tools/device_huffman_spike.py:94-109 (jnp, no "
+                               "Pallas kernel)"}
+    sources = {"synth": "src/mp3tpu_torch/csrc/synth.cu",
+               "huffman_dfa": "src/mp3tpu_torch/csrc/huffman_dfa.cu"}
+    case_keys = {"huffman_dfa": ("case", "table", "rows", "bits", "ms",
+                                 "plain_ms", "bound_us", "bound_share",
+                                 "bit_serial_bound_share")}
     kernels = []
     for name, rep in replaces.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
         if check_calls[name] <= 0:
             raise AssertionError(f"{name}: the kernel phase did not launch it")
+        head = (krec[name][0] if name == "huffman_dfa" else next(
+            c for c in krec[name]
+            if c["S"] == 64 and c["types"] in ("int32/int16", "float32")))
+        keys = case_keys.get(name, ("S", "G", "types", "used_by", "ms",
+                                    "ms_cold_l2", "bound_us", "bound_share"))
         kernels.append({
             "name": name, "route": "cuda",
             "source": sources.get(name, "src/mp3tpu_torch/csrc/fused_z.cu"),
             "replaces": rep,
             "launches": sum(by_path.values()), "paths": by_path,
-            "check_calls": check_calls[name],
-            **next(c for c in krec[name]
-                   if c["S"] == 64 and c["types"] in ("int32/int16", "float32")),
-            "cases": [{k: c[k] for k in ("S", "G", "types", "used_by", "ms",
-                                         "ms_cold_l2", "bound_us", "bound_share")}
-                      for c in krec[name]]})
+            "check_calls": check_calls[name], **head,
+            "cases": [{k: c[k] for k in keys} for c in krec[name]]})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -135,6 +135,15 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock in MHz, as nvidia-smi gives it
+    (clocks.max.sm)."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, check=True)
+    return float(r.stdout.strip().splitlines()[0])
+
+
 def device_facts(device) -> dict:
     """What every line says of where it ran. Raises for a CUDA device on a
     host without one: the bench does not fall back to the CPU."""

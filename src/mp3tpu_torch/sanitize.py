@@ -23,7 +23,11 @@ Three parts:
   symbols and exponents at the extremes csrc/unpack.cpp can write, stereo
   bytes at and beyond the palette; csrc/synth.cu at S = 1, 8, 64, 256,
   36 x 130, granule counts around its tile and a window split that carries
-  the state), each held to its plain version, and decode_batch of clean,
+  the state; csrc/huffman_dfa.cu at 1, 31, 33, 4,096 and 131,072 rows
+  and around its persistent grid's width, at 8 to 2,048 bits a row, some
+  not a multiple of 32, through every kind of automaton, on random bits
+  and on real codewords), each held to its plain version, and
+  decode_batch of clean,
   corrupted (soak.py's three kinds) and junk streams. On the card each
   kernel case launches RERUNS times, bit-identical, into outputs between
   guard bands: a write outside its output or a value left unwritten fails
@@ -428,8 +432,19 @@ SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 # (None: everything the group launches) and the tools that run it
 GROUPS = {"fused_z": ("fused_z_kernel", SANITIZER_TOOLS),
           "synth": ("synth_kernel", SANITIZER_TOOLS),
+          "huffman_dfa": ("dfa_count_kernel", SANITIZER_TOOLS),
           "decode": (None, ("memcheck", "initcheck"))}
 ERROR_EXIT = 86
+# the chain's cases: every pairing of DFA_ROWS rows (and the persistent
+# grid's width, one less and one more), DFA_BITS bits a row (8 and 264 not
+# multiples of 32, 259 not even of 8) and the automata of every kind (count1
+# table A; big-values tables 13, 24 with linbits, 31 with the most chain
+# states); then CODEWORD_ROWS rows of CODEWORD_BITS bits of real codewords
+# of each automaton
+DFA_ROWS = (1, 31, 33, 4096, 131072)
+DFA_BITS = (8, 256, 259, 264, 2048)
+DFA_TABLES = ("count1a", 13, 24, 31)
+CODEWORD_ROWS, CODEWORD_BITS = 33, 2048
 
 
 def persistent_grid(name: str, device) -> int:
@@ -520,15 +535,15 @@ def synth_cases(device) -> list:
     return cases
 
 
-def guarded(shape: tuple, device):
+def guarded(shape: tuple, device, dtype=None):
     """(buffer, view): int32 words of GUARD_BITS, GUARD before and after a
-    float32 view of `shape` in the middle (16-byte aligned), for a kernel
-    to write into."""
+    view of `shape` in the middle (16-byte aligned), float32 unless `dtype`
+    (a 4-byte type), for a kernel to write into."""
     import torch
     n = int(np.prod(shape))
     buf = torch.full((2 * GUARD + n,), GUARD_BITS, dtype=torch.int32,
                      device=device)
-    return buf, buf[GUARD:GUARD + n].view(torch.float32).view(shape)
+    return buf, buf[GUARD:GUARD + n].view(dtype or torch.float32).view(shape)
 
 
 def check_guards(buf, n: int, what: str) -> None:
@@ -644,6 +659,79 @@ def run_synth(device) -> list:
     return recs
 
 
+def dfa_shapes(width: int) -> list:
+    """(rows, nbits) of the chain's random cases around a persistent grid
+    `width` rows wide."""
+    rows = sorted(set(DFA_ROWS) | {width - 1, width, width + 1})
+    return [(r, b) for r in rows for b in DFA_BITS]
+
+
+def dfa_cases(device, width: int):
+    """Yields (label, packed, trans, nbits, codewords or None) of the chain's
+    cases: random bytes at every dfa_shapes(width) through every automaton
+    of DFA_TABLES, then rows of real codewords of each, whose counts must be
+    their codewords'."""
+    import torch
+    from .kernels import huffman_dfa as hd
+    t = lambda a: torch.from_numpy(a).to(device)
+    tabs = {table: t(hd.automaton(table)[0]) for table in DFA_TABLES}
+    rng = np.random.default_rng(13)
+    for rows, nbits in dfa_shapes(width):
+        packed = t(rng.integers(0, 256, (rows, -(-nbits // 8)), np.uint8))
+        for table, tab in tabs.items():
+            yield (f"{table} {rows} rows x {nbits} bits", packed, tab, nbits,
+                   None)
+    for table, tab in tabs.items():
+        packed, counts, _ = hd.codeword_rows(table, CODEWORD_ROWS,
+                                             CODEWORD_BITS, seed=7)
+        yield (f"{table} {CODEWORD_ROWS} rows of codewords x {CODEWORD_BITS} "
+               "bits", t(packed), tab, CODEWORD_BITS, counts)
+
+
+def guarded_dfa(packed, trans, nbits: int, what: str):
+    """csrc/huffman_dfa.cu into guarded counts; raises if it wrote outside
+    them or left a count unwritten."""
+    import torch
+    from .kernels import huffman_dfa as hd
+    buf, out = guarded((packed.shape[0],), packed.device, torch.int32)
+    hd._launch(packed, trans, nbits, out=out)
+    torch.cuda.synchronize(packed.device)
+    check_guards(buf, out.numel(), f"huffman_dfa {what}")
+    return out
+
+
+def run_dfa(device, width: int | None = None) -> list:
+    """Every chain case (dfa_cases around `width`, by default the card's
+    persistent grid) equal to the plain version's counts (on a card the
+    kernel, launched RERUNS times into guarded counts, bit-identical each
+    time), and the codeword rows' counts equal to their codewords. Records."""
+    import torch
+    from .kernels import huffman_dfa as hd
+    on_card = torch.device(device).type == "cuda"
+    width = hd.persistent_width(device) if width is None else width
+    recs = []
+    for label, packed, trans, nbits, codewords in dfa_cases(device, width):
+        want = hd.dfa_count_reference(packed, trans, nbits)
+        got = want
+        if on_card:
+            runs = [guarded_dfa(packed, trans, nbits, label)
+                    for _ in range(RERUNS)]
+            got = runs[0]
+            if not all(torch.equal(got, r) for r in runs[1:]):
+                raise AssertionError(f"huffman_dfa {label}: launches differ")
+        err = int((got.long() - want.long()).abs().max())
+        if err:
+            raise AssertionError(f"huffman_dfa {label}: counts differ from "
+                                 f"the plain version's by up to {err}")
+        if codewords is not None and not np.array_equal(got.cpu().numpy(),
+                                                        codewords):
+            raise AssertionError(f"huffman_dfa {label}: counts differ from "
+                                 "the rows' codewords")
+        recs.append({"kernel": "huffman_dfa", "case": label, "max_abs_err": err,
+                     "max_abs_out": int(want.max()), "worst_over_tol": 0.0})
+    return recs
+
+
 def junk_stream(clip: bytes, n_frames: int, seed: int) -> bytes:
     """Random bytes with a real frame header of `clip` planted at every
     frame's start: the container scan finds `n_frames` frames whose side
@@ -713,7 +801,8 @@ def run_decode(device) -> list:
     return recs
 
 
-RUNNERS = {"fused_z": run_fused, "synth": run_synth, "decode": run_decode}
+RUNNERS = {"fused_z": run_fused, "synth": run_synth, "huffman_dfa": run_dfa,
+           "decode": run_decode}
 
 
 def run_device_cases(device="cuda", groups=tuple(GROUPS)) -> list:

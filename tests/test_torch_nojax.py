@@ -3,8 +3,11 @@ chip_smoke.py, imports JAX, the JAX package mp3tpu (any of it) or the test
 fixtures, and a process where neither JAX nor mp3tpu can be imported
 decodes, batch-decodes (to the host and to the device-resident handle), plays,
 scans levels and segments in batches, encodes, transcodes, runs the command
-line, the bench and the scheduler soak with the port, as on a GPU host
-without them. The port never imports the JAX harness tools/soak.py either."""
+line, the bench, the scheduler soak and a measurement tool with the port, as
+on a GPU host without them. The port never imports the repository's tools/
+either (the JAX package's harnesses and measurement tools, soak.py among
+them), and no runtime module of the port imports its own measurement tools,
+mp3tpu_torch.tools."""
 import json
 import os
 import re
@@ -21,7 +24,13 @@ PORT = os.path.join(REPO, "src", "mp3tpu_torch")
 IMPORT = re.compile(r"^\s*(?:from\s+(\S+)\s+import|import\s+([^#\n]+))", re.M)
 # importlib.import_module("...") and __import__("...") by name
 DYNAMIC = re.compile(r"""(?:import_module|__import__)\(\s*['"]([^'"]+)['"]""")
-FORBIDDEN = ("jax", "mp3tpu", "fixtures", "soak")
+# the repository's tools/ are importable by their file names where tests
+# run (tests/conftest.py puts tools/ on sys.path)
+JAX_TOOLS = tuple(f[:-3] for f in os.listdir(os.path.join(REPO, "tools"))
+                  if f.endswith(".py"))
+FORBIDDEN = ("jax", "mp3tpu", "fixtures", "tools") + JAX_TOOLS
+# "from . import tools", "from .. import x, tools"
+TOOLS_BY_NAME = re.compile(r"^\s*from\s+\.+\s+import\s+[^#\n]*\btools\b", re.M)
 CLIP = os.path.join(REPO, "tests", "torch_clips", "tonal.mp3")  # 10 s
 
 
@@ -44,7 +53,12 @@ def test_port_sources_import_no_jax():
     assert {"cli.py", "bench.py", "soak.py", "sanitize.py", "api.py", "transfer.py",
             os.path.join("utils", "profiling.py"), os.path.join("parallel", "mesh.py"),
             os.path.join("parallel", "distributed.py"),
-            os.path.join("kernels", "synth.py")} <= names
+            os.path.join("kernels", "synth.py"),
+            os.path.join("kernels", "huffman_dfa.py")} <= names
+    assert {os.path.join("tools", f"{t}.py") for t in (
+        "__init__", "device_huffman_spike", "bench_repeat", "bench_segment",
+        "d2h_overlap_timing", "encode_single_profile", "rate_loop_hist")} <= names
+    assert {"soak", "device_huffman_spike", "rate_loop_hist"} <= set(JAX_TOOLS)
     assert {os.path.join("encoder", f) for f in (
         "__init__.py", "batch.py", "device.py", "psy_device.py",
         "vloop_device.py", "emit_device.py", "tables.py", "mux_packed.py",
@@ -53,6 +67,22 @@ def test_port_sources_import_no_jax():
         for mod in imported_modules(path):
             assert not any(mod == b or mod.startswith(b + ".")
                            for b in FORBIDDEN), (path, mod)
+
+
+def test_runtime_modules_import_no_measurement_tool():
+    """Only chip_smoke.py and mp3tpu_torch.tools itself import
+    mp3tpu_torch.tools: the decode, encode and kernel paths never do."""
+    tools = os.path.join(PORT, "tools")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
+             if f.endswith(".py") and not d.startswith(tools)]
+    assert len(files) >= 60
+    for path in files:
+        with open(path) as f:
+            assert not TOOLS_BY_NAME.search(f.read()), path
+        for mod in imported_modules(path):
+            name = mod.lstrip(".") if mod.startswith(".") else mod
+            assert not (name == "tools" or name.startswith("tools.")
+                        or mod.startswith("mp3tpu_torch.tools")), (path, mod)
 
 
 def test_decodes_without_jax(tmp_path):
@@ -99,6 +129,9 @@ def test_decodes_without_jax(tmp_path):
         "assert (kind, sink) == ('clean', 'check') and want == got > 0\n"
         "assert rep['clean_max_abs_lsb'] == 0 and rep['clean_misaligned'] == 0\n"
         "assert rep['card'] == 'cpu' and rep['steps'] > 0\n"
+        "from mp3tpu_torch.tools import device_huffman_spike as spike\n"
+        "spike.main(['--rows', '16', '--bits', '40', '--table', '31', "
+        "'--reps', '1', '--host-iters', '0', '--device', 'cpu'])\n"
         "assert sys.modules['jax'] is None and sys.modules['mp3tpu'] is None\n"
         "print('ok', sr)\n")
     # one OpenMP thread, like the test workers (test_torch_decode.py)
@@ -107,7 +140,9 @@ def test_decodes_without_jax(tmp_path):
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    info, head, ok = r.stdout.strip().splitlines()
+    info, head, spike, ok = r.stdout.strip().splitlines()
+    spike = json.loads(spike)
+    assert (spike["table"], spike["rows"], spike["card"]) == (31, 16, None)
     assert json.loads(info)["sample_rate"] == 44100
     head = json.loads(head)
     assert head["metric"] == "aggregate_decode_realtime_factor" and head["checked"]
