@@ -170,8 +170,11 @@ def transcode_batch(paths, bitrate=None, device="cuda", **kw) -> list:
     bytes aligned with the inputs."""
     from .encoder import encode_batch as _enc
     from .pipeline import decode_files
-    return _enc(decode_files(list(paths), output="device", device=device),
-                bitrate=bitrate, device=device, **kw)
+    from .utils.profiling import request
+    paths = list(paths)
+    with request("mp3tpu.transcode_batch", len(paths)):
+        return _enc(decode_files(paths, output="device", device=device),
+                    bitrate=bitrate, device=device, **kw)
 
 
 def global_metrics():

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..container.frames import BITRATES_V1_L3
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, request
 from . import vloop, vloop_device
 from .huffcode import encode_granule
 from .mux import FrameSizer, ReservoirMux, build_xing_frame, \
@@ -168,102 +168,106 @@ def encode_batch(pcms, sample_rate: int | None = None,
     the MP3s come back in stream order, byte for byte those of the unsharded
     call. A DecodedBatch with mesh set goes through the host. A `device`
     that is not one of the mesh's raises ValueError."""
-    from ..config import get_active
-    ecfg = get_active().encode
-    bitrate = ecfg.bitrate if bitrate is None else bitrate
-    gapless_tag = ecfg.gapless_tag if gapless_tag is None else gapless_tag
-    short_blocks = ecfg.short_blocks if short_blocks is None else short_blocks
-    joint_stereo = ecfg.joint_stereo if joint_stereo is None else joint_stereo
-    noise_shaping = (ecfg.noise_shaping if noise_shaping is None
-                     else noise_shaping)
-    if bitrate not in BITRATES_V1_L3:
-        raise ValueError("unsupported bitrate")
-    is_dev_batch = (hasattr(pcms, "device_pcm")
-                    and hasattr(pcms, "sample_rates"))
-    if not is_dev_batch and sample_rate not in SR_IDX:
-        raise ValueError("unsupported sample rate")
-    # ---- device-resident input (DecodedBatch, SURVEY.md §3.2) -----------
-    # transcode path: decode_batch(output="device") -> encode_batch: the
-    # PCM stays on the device (no stage H2D, no decode D2H). Host-fallback
-    # records and mixed channels materialize to the host path below
-    # (correct, just not zero-copy).
-    recs = None
-    if is_dev_batch:
-        rates = set(pcms.sample_rates)
-        if len(rates) != 1:
-            raise ValueError("device-batch encode needs one sample rate, "
-                             f"got {sorted(rates)}")
-        rate = rates.pop()
-        if sample_rate is not None and sample_rate != rate:
-            raise ValueError(f"sample_rate {sample_rate} != decoded {rate}")
-        sample_rate = rate
-        if sample_rate not in SR_IDX:
-            raise ValueError("unsupported decoded sample rate")
-        recs = [pcms.device_pcm(i) for i in range(len(pcms))]
-        nchs = {r[4] for r in recs}
-        on = [r[0].device for r in recs if isinstance(r[0], torch.Tensor)]
-        if on and mesh is None:  # the encode runs where the handle's PCM lies
-            device = on[0]
-        if (mesh is not None or len(nchs) != 1 or next(iter(nchs)) > 2
-                or len(on) < len(recs)):
-            pcms = [p.astype(np.float64) / 32768.0 for p, _sr in pcms.numpy()]
-            recs = None
-    if mesh is not None:
-        _check_mesh_device(mesh, device)  # and the mesh's devices rule below
-    else:
-        device = torch.device("cuda" if device is None else device)
+    with request("mp3tpu.encode_batch", len(pcms)):
+        from ..config import get_active
+        ecfg = get_active().encode
+        bitrate = ecfg.bitrate if bitrate is None else bitrate
+        gapless_tag = ecfg.gapless_tag if gapless_tag is None else gapless_tag
+        short_blocks = ecfg.short_blocks if short_blocks is None else short_blocks
+        joint_stereo = ecfg.joint_stereo if joint_stereo is None else joint_stereo
+        noise_shaping = (ecfg.noise_shaping if noise_shaping is None
+                         else noise_shaping)
+        if bitrate not in BITRATES_V1_L3:
+            raise ValueError("unsupported bitrate")
+        is_dev_batch = (hasattr(pcms, "device_pcm")
+                        and hasattr(pcms, "sample_rates"))
+        if not is_dev_batch and sample_rate not in SR_IDX:
+            raise ValueError("unsupported sample rate")
+        # ---- device-resident input (DecodedBatch, SURVEY.md §3.2) -----------
+        # transcode path: decode_batch(output="device") -> encode_batch: the
+        # PCM stays on the device (no stage H2D, no decode D2H). Host-fallback
+        # records and mixed channels materialize to the host path below
+        # (correct, just not zero-copy).
+        recs = None
+        if is_dev_batch:
+            with annotate("mp3tpu.encode.device_input", len(pcms)):
+                rates = set(pcms.sample_rates)
+                if len(rates) != 1:
+                    raise ValueError("device-batch encode needs one sample rate, "
+                                     f"got {sorted(rates)}")
+                rate = rates.pop()
+                if sample_rate is not None and sample_rate != rate:
+                    raise ValueError(
+                        f"sample_rate {sample_rate} != decoded {rate}")
+                sample_rate = rate
+                if sample_rate not in SR_IDX:
+                    raise ValueError("unsupported decoded sample rate")
+                recs = [pcms.device_pcm(i) for i in range(len(pcms))]
+                nchs = {r[4] for r in recs}
+                on = [r[0].device for r in recs if isinstance(r[0], torch.Tensor)]
+                if on and mesh is None:  # the encode runs where the PCM lies
+                    device = on[0]
+                if (mesh is not None or len(nchs) != 1 or next(iter(nchs)) > 2
+                        or len(on) < len(recs)):
+                    pcms = [p.astype(np.float64) / 32768.0
+                            for p, _sr in pcms.numpy()]
+                    recs = None
+        if mesh is not None:
+            _check_mesh_device(mesh, device)  # and the mesh's devices rule below
+        else:
+            device = torch.device("cuda" if device is None else device)
 
-    arrs = []
-    if recs is None:
-        for p in pcms:
-            a = np.asarray(p, np.float64)
-            if a.ndim == 1:
-                a = a[:, None]
-            arrs.append(a)
-        nchs = {a.shape[1] for a in arrs}
-        if len(nchs) != 1 or arrs[0].shape[1] > 2:
-            # stream by stream, each on its shard's device
-            from . import encode_pcm
-            devs = ([device] * len(arrs) if mesh is None else
-                    [dev for dev, sl in zip(mesh.devices, _slices(mesh, len(arrs)))
-                     for _ in range(sl.start, sl.stop)])
-            return [encode_pcm(a, sample_rate, bitrate=bitrate,
-                               gapless_tag=gapless_tag,
-                               short_blocks=short_blocks,
-                               joint_stereo=joint_stereo,
-                               noise_shaping=noise_shaping,
-                               reservoir=reservoir, device=dev)
-                    for a, dev in zip(arrs, devs)]
-    def run(part, part_recs, dev):
-        phases = _Phases(dev)
-        try:
-            return _encode_batch(part, part_recs, sample_rate, bitrate,
-                                 gapless_tag, short_blocks, joint_stereo,
-                                 noise_shaping, reservoir, dev,
-                                 bool(ecfg.device_emit), phases)
-        finally:
-            phases.close()
+        arrs = []
+        if recs is None:
+            for p in pcms:
+                a = np.asarray(p, np.float64)
+                if a.ndim == 1:
+                    a = a[:, None]
+                arrs.append(a)
+            nchs = {a.shape[1] for a in arrs}
+            if len(nchs) != 1 or arrs[0].shape[1] > 2:
+                # stream by stream, each on its shard's device
+                from . import encode_pcm
+                devs = ([device] * len(arrs) if mesh is None else
+                        [dev for dev, sl in zip(mesh.devices, _slices(mesh, len(arrs)))
+                         for _ in range(sl.start, sl.stop)])
+                return [encode_pcm(a, sample_rate, bitrate=bitrate,
+                                   gapless_tag=gapless_tag,
+                                   short_blocks=short_blocks,
+                                   joint_stereo=joint_stereo,
+                                   noise_shaping=noise_shaping,
+                                   reservoir=reservoir, device=dev)
+                        for a, dev in zip(arrs, devs)]
+        def run(part, part_recs, dev):
+            phases = _Phases(dev)
+            try:
+                return _encode_batch(part, part_recs, sample_rate, bitrate,
+                                     gapless_tag, short_blocks, joint_stereo,
+                                     noise_shaping, reservoir, dev,
+                                     bool(ecfg.device_emit), phases)
+            finally:
+                phases.close()
 
-    if mesh is None:
-        return run(arrs, recs, device)
-    out = []
-    for dev, sl in zip(mesh.devices, _slices(mesh, len(arrs))):
-        if sl.start == sl.stop:
-            continue
-        if dev.type != "cuda":
-            out += run(arrs[sl], None, dev)
-            continue
-        # the shard's own stream, behind what the device's current stream
-        # holds. _encode_batch ends with its results on the host, so the
-        # shards still run one after the other: the stream keeps a shard's
-        # work apart from the caller's, and overlap between shards waits for
-        # an encode that submits every shard before it collects any
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.device(dev), torch.cuda.stream(side):
-            out += run(arrs[sl], None, dev)
-        torch.cuda.current_stream(dev).wait_stream(side)
-    return out
+        if mesh is None:
+            return run(arrs, recs, device)
+        out = []
+        for dev, sl in zip(mesh.devices, _slices(mesh, len(arrs))):
+            if sl.start == sl.stop:
+                continue
+            if dev.type != "cuda":
+                out += run(arrs[sl], None, dev)
+                continue
+            # the shard's own stream, behind what the device's current stream
+            # holds. _encode_batch ends with its results on the host, so the
+            # shards still run one after the other: the stream keeps a shard's
+            # work apart from the caller's, and overlap between shards waits for
+            # an encode that submits every shard before it collects any
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.device(dev), torch.cuda.stream(side):
+                out += run(arrs[sl], None, dev)
+            torch.cuda.current_stream(dev).wait_stream(side)
+        return out
 
 
 def _slices(mesh, n_streams: int):

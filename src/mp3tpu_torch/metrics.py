@@ -1,8 +1,7 @@
 """Metrics / observability (SURVEY.md F3, §5.5).
 
-Counters and gauges for the decode/play pipelines. The aggregate
-realtime factor (the north-star metric) is derived from samples_out
-against wall-clock spans recorded with `span()`.
+Counters and gauges for the decode/play pipelines, and the wall-clock
+books `span()` adds to (host_seconds, device_seconds).
 
 The fault-counter family (frames_ok/frames_error/granules_muted/
 resyncs — SURVEY.md §5.3 "error counters increment") is fed from the
@@ -13,14 +12,16 @@ Metrics and the process-wide GLOBAL instance, so an operator tailing
 GLOBAL.log_line() sees corruption the moment any path decodes it.
 
 Copy of mp3tpu.metrics, kept in the port so that it imports nothing of
-the JAX package; the code is the same.
+the JAX package; the code is the same less realtime_factor and the unused
+_spans field. The program's spans and counters for its per-layer metrics
+are utils/profiling.py's, not these books.
 """
 from __future__ import annotations
 
 import json
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -44,7 +45,6 @@ class Metrics:
     streams_finished: int = 0
     host_seconds: float = 0.0
     device_seconds: float = 0.0
-    _spans: dict = field(default_factory=dict)
 
     def span(self, name: str):
         return _Span(self, name)
@@ -67,12 +67,6 @@ class Metrics:
         bad = (e.reshape(-1, ngr) != 0).any(axis=1)
         self.frames_error += int(bad.sum())
         self.frames_ok += int((~bad).sum())
-
-    def realtime_factor(self, sample_rate: int) -> float:
-        wall = self.host_seconds + self.device_seconds
-        if wall <= 0:
-            return 0.0
-        return self.samples_out / sample_rate / wall
 
     def merge(self, other: "Metrics") -> "Metrics":
         """Accumulate another Metrics into this one (multi-track

@@ -25,7 +25,7 @@ from .container.xing import StreamInfo, is_metadata_frame, parse_stream_info
 from .dsp.gapless import gapless_bounds
 from .kernels import pipeline as kp
 from .transfer import HostCopy
-from .utils.profiling import annotate, device_trace
+from .utils.profiling import annotate, device_trace, request
 
 # One window shape for every single-stream path, and windows per group, as
 # in the JAX package: the last group is zero-padded to the full group.
@@ -106,7 +106,7 @@ def _iter_group_pcm(st: SymbolTensors, window: int, group: int, device):
                 a = np.pad(a, ((0, span - g),) + ((0, 0),) * (a.ndim - 1))
             return torch.from_numpy(np.ascontiguousarray(a[None])).to(device)
 
-        with annotate(f"mp3tpu.decode_group[{start}:{start + g}]"):
+        with annotate("mp3tpu.decode_group", lo=start, hi=start + g):
             pcm, state = kp.decode_window_group(
                 prep(st.is_), prep(st.exp), prep(st.block_type),
                 prep(st.mixed), prep(st.smode), state, st.sample_rate, group)
@@ -533,17 +533,19 @@ def decode_files(paths, gapless: bool = True, output: str = "pcm",
     carries host records that behave the same."""
     if output not in ("pcm", "device"):
         raise ValueError(f'output must be "pcm" or "device", got {output!r}')
-    datas = [_read(p) for p in paths]
-    fast = _decode_files_fast(datas, gapless, device, output=output)
-    if fast is not None:
-        return DecodedBatch(fast) if output == "device" else fast
-    from .player.scheduler import decode_batch_streams
-    if output != "device":
-        return decode_batch_streams(datas, gapless=gapless, device=device)
-    res, infos = decode_batch_streams(datas, gapless=gapless, device=device,
-                                      return_info=True)
-    return DecodedBatch([_host_rec(pcm, rate, info, gapless)
-                         for info, (pcm, rate) in zip(infos, res)])
+    paths = list(paths)
+    with request("mp3tpu.decode_files", len(paths)):
+        datas = [_read(p) for p in paths]
+        fast = _decode_files_fast(datas, gapless, device, output=output)
+        if fast is not None:
+            return DecodedBatch(fast) if output == "device" else fast
+        from .player.scheduler import decode_batch_streams
+        if output != "device":
+            return decode_batch_streams(datas, gapless=gapless, device=device)
+        res, infos = decode_batch_streams(datas, gapless=gapless,
+                                          device=device, return_info=True)
+        return DecodedBatch([_host_rec(pcm, rate, info, gapless)
+                             for info, (pcm, rate) in zip(infos, res)])
 
 
 def _decode_files_fast(datas, gapless: bool, device, output: str = "pcm",
@@ -570,7 +572,8 @@ def _decode_files_fast(datas, gapless: bool, device, output: str = "pcm",
         return None
     if any(m is None for m in metas):
         return None
-    G_all = [probe_granules(m[0]) for m in metas]
+    with annotate("mp3tpu.probe_granules", len(metas)):
+        G_all = [probe_granules(m[0]) for m in metas]
     if min(G_all, default=1) <= 0:
         return None
     out: list = [None] * len(datas)
@@ -616,23 +619,24 @@ def stream_meta(data: bytes):
     """(audio body, StreamInfo, sample_rate, channels, version, resyncs) of
     one stream; the body lacks ID3v2 and a leading metadata frame. None
     when the metadata frame's bytes cannot be dropped exactly."""
-    id3 = parse_id3v2(data)
-    body = data[id3.size:] if id3.size else data
-    index = fr.scan_frames(np.frombuffer(body, np.uint8))
-    info = parse_stream_info(body, int(index.offsets[0]), index.headers[0])
-    if is_metadata_frame(info):
-        # dropping the metadata frame's bytes is exact only when the first
-        # audio frame's reservoir pointer is 0
-        if len(index.offsets) < 2:
-            return None
-        off = int(index.offsets[1])
-        h = index.headers[1]
-        si = off + 4 + (2 if h.crc_protected else 0)
-        if si + 2 > len(body) or ((body[si] << 1) | (body[si + 1] >> 7)):
-            return None
-        body = body[off:]
-    return (body, info, index.sample_rate, index.channels, index.version,
-            index.resyncs)
+    with annotate("mp3tpu.scan", 1):
+        id3 = parse_id3v2(data)
+        body = data[id3.size:] if id3.size else data
+        index = fr.scan_frames(np.frombuffer(body, np.uint8))
+        info = parse_stream_info(body, int(index.offsets[0]), index.headers[0])
+        if is_metadata_frame(info):
+            # dropping the metadata frame's bytes is exact only when the first
+            # audio frame's reservoir pointer is 0
+            if len(index.offsets) < 2:
+                return None
+            off = int(index.offsets[1])
+            h = index.headers[1]
+            si = off + 4 + (2 if h.crc_protected else 0)
+            if si + 2 > len(body) or ((body[si] << 1) | (body[si + 1] >> 7)):
+                return None
+            body = body[off:]
+        return (body, info, index.sample_rate, index.channels, index.version,
+                index.resyncs)
 
 
 def probe_granules(body: bytes) -> int:
@@ -649,14 +653,15 @@ def unpack_planes(bodies, Gs, S: int, win: int, plane_bits: int = 4):
     then 4 -> 8 -> 12-bit spectrum planes. Returns (planes, per-stream
     error flags, plane_bits, exp_bytes), or None if no plane holds them."""
     exp_bytes = True
-    while (got := _unpack_chunk(bodies, Gs, S, win, plane_bits,
-                                exp_bytes)) is None:
-        if exp_bytes:
-            exp_bytes = False
-        elif plane_bits in (4, 8):
-            plane_bits = {4: 8, 8: 12}[plane_bits]
-        else:
-            return None
+    with annotate("mp3tpu.unpack", len(bodies)):
+        while (got := _unpack_chunk(bodies, Gs, S, win, plane_bits,
+                                    exp_bytes)) is None:
+            if exp_bytes:
+                exp_bytes = False
+            elif plane_bits in (4, 8):
+                plane_bits = {4: 8, 8: 12}[plane_bits]
+            else:
+                return None
     return got + (plane_bits, exp_bytes)
 
 
@@ -664,8 +669,14 @@ def _unpack_chunk(bodies, Gs, S, win, plane_bits, exp_bytes):
     """One try of unpack_planes at one plane width: (planes, error flags),
     or None if a granule-channel overflows the planes' sideband or
     exponent range."""
-    b = plane_buffers(-(-max(Gs) // win), S, win, plane_bits, exp_bytes)
-    errs = unpack_into(b, bodies, Gs, S, win, plane_bits, exp_bytes)
+    with annotate("mp3tpu.unpack.pass", len(bodies), plane_bits=plane_bits,
+                  exp_bytes=exp_bytes) as sp:
+        with annotate("mp3tpu.unpack.alloc"):
+            b = plane_buffers(-(-max(Gs) // win), S, win, plane_bits,
+                              exp_bytes)
+        with annotate("mp3tpu.unpack.run"):
+            errs = unpack_into(b, bodies, Gs, S, win, plane_bits, exp_bytes)
+        sp.outcome = "overflow" if errs is None else "ok"
     return None if errs is None else (b, errs)
 
 
@@ -756,14 +767,17 @@ def _fast_chunk(metas, chunk, Gs, rate, gapless, out, cfg, pending_faults,
 
     if plane_bits == 4 and exp_bytes:
         # one uint8 arena per window, split back into planes on the device
-        arenas = torch.from_numpy(kp.pack_window_arenas(b, S, win)).to(device)
+        with annotate("mp3tpu.stage"):
+            arenas = torch.from_numpy(
+                kp.pack_window_arenas(b, S, win)).to(device)
 
         def scan(lo, hi, state):
             return kp.decode_window_arenas_i16(
                 [arenas[w] for w in range(lo, hi)], state, rate, S, win)
     else:
         keys = ("is12", "esc", "exp", "bt", "mx", "smode")
-        dev = {k: torch.from_numpy(b[k]).to(device) for k in keys}
+        with annotate("mp3tpu.stage"):
+            dev = {k: torch.from_numpy(b[k]).to(device) for k in keys}
 
         def scan(lo, hi, state):
             return kp.decode_windows_scan_i16(
@@ -772,28 +786,41 @@ def _fast_chunk(metas, chunk, Gs, rate, gapless, out, cfg, pending_faults,
 
     state = kp.init_state(S, device=device)
     if output == "device":
-        with annotate(f"mp3tpu.decode_chunk[{n_win} windows]"):
+        with annotate("mp3tpu.decode_chunk", lo=0, hi=n_win):
             pcm_dev, _ = scan(0, n_win, state)
-        for k, i in enumerate(chunk):
-            info, n = metas[i][1], Gs[k] * 576
-            t_lo, t_hi = _playable_bounds(info, n)
-            skip, end = (t_lo, t_hi) if gapless else (0, n)
-            out[i] = _DecodedStream(
-                dev=pcm_dev, row=k, host=None, n=n, skip=skip, end=end,
-                t_lo=t_lo, t_hi=t_hi, nch=metas[i][3], rate=rate, info=info)
+        with annotate("mp3tpu.device_records", len(chunk)):
+            for k, i in enumerate(chunk):
+                info, n = metas[i][1], Gs[k] * 576
+                t_lo, t_hi = _playable_bounds(info, n)
+                skip, end = (t_lo, t_hi) if gapless else (0, n)
+                out[i] = _DecodedStream(
+                    dev=pcm_dev, row=k, host=None, n=n, skip=skip, end=end,
+                    t_lo=t_lo, t_hi=t_hi, nch=metas[i][3], rate=rate,
+                    info=info)
         return True
 
     copies = []
     for lo, hi in window_segments(n_win, cfg.d2h_segments):
-        with annotate(f"mp3tpu.decode_chunk[{lo}:{hi}]"):
+        with annotate("mp3tpu.decode_chunk", lo=lo, hi=hi):
             pcm_j, state = scan(lo, hi, state)
-        copies.append((lo * win * 576, HostCopy(pcm_j, overlap=True)))
-    parts = [(off, c.numpy(owned=False)) for off, c in copies]
-    for k, i in enumerate(chunk):
-        # bounds from the original container parse
-        n = Gs[k] * 576
-        skip, end = _playable_bounds(metas[i][1], n) if gapless else (0, n)
-        out[i] = (_slice_parts(parts, k, skip, end, metas[i][3]), rate)
+        with annotate("mp3tpu.d2h.start",
+                      pcm_j.numel() * pcm_j.element_size()):
+            copies.append((lo * win * 576, HostCopy(pcm_j, overlap=True)))
+    parts = []
+    for off, c in copies:
+        with annotate("mp3tpu.d2h.wait"):
+            parts.append((off, c.numpy(owned=False)))
+    with annotate("mp3tpu.slice") as sp:
+        nbytes = 0
+        for k, i in enumerate(chunk):
+            # bounds from the original container parse
+            n = Gs[k] * 576
+            skip, end = (_playable_bounds(metas[i][1], n) if gapless
+                         else (0, n))
+            pcm = _slice_parts(parts, k, skip, end, metas[i][3])
+            nbytes += pcm.nbytes
+            out[i] = (pcm, rate)
+        sp.items = nbytes
     return True
 
 
@@ -834,7 +861,7 @@ def decode_symbols_chunked(st: SymbolTensors, chunk_granules: int = 128,
         segs = 1
     copies = []
     for lo, hi in window_segments(S, segs):
-        with annotate(f"mp3tpu.decode_chunked[{lo}:{hi}]"):
+        with annotate("mp3tpu.decode_chunked", lo=lo, hi=hi):
             p, _ = fn(*(a[lo:hi] for a in args),
                       kp.init_state(hi - lo, device=device), st.sample_rate)
         copies.append(HostCopy(p[:, halo * 576:].contiguous(), overlap=True))

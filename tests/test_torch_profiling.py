@@ -1,6 +1,7 @@
 """mp3tpu_torch.utils.profiling on the CPU: device_trace writes a
 torch.profiler trace that holds the decode's annotations, and is a no-op
-with no directory; annotate and fenced leave results alone."""
+with no directory; annotate leaves results alone. The spans:
+test_torch_spans.py."""
 import glob
 import json
 import os
@@ -75,8 +76,3 @@ def test_annotate_passes_exceptions_through():
     with pytest.raises(KeyError):
         with profiling.annotate("mp3tpu.fails"):
             raise KeyError("x")
-
-
-def test_fenced_returns_the_result():
-    out = profiling.fenced(lambda a, b=1: a + b, torch.ones(3), b=2)
-    assert torch.equal(out, torch.full((3,), 3.0))
