@@ -9,7 +9,8 @@ failure raises and the script exits non-zero:
   2. build: the port's C++ host library (csrc/unpack.cpp, encode_rows.cpp
      and mux_stream.cpp, g++), the unpacker's section profiler
      (csrc/prof_main.cpp, g++, for the tools phase) and the CUDA kernels
-     (csrc/fused_z.cu, csrc/synth.cu and csrc/huffman_dfa.cu, one nvcc each),
+     (csrc/fused_z.cu, csrc/synth.cu, csrc/huffman_dfa.cu and
+     csrc/rate_bisect.cu, one nvcc each),
      all at once; the run fails if any does not build or load;
   3. kernel vs plain: fused_pipeline_z (C1-C5) and fused_frontend (C1-C4)
      through kernels/selfcheck.py's checks (odd pair counts, every input
@@ -31,7 +32,13 @@ failure raises and the script exits non-zero:
      plain version's, one conv1d call's and its bound; then the Huffman
      chain (csrc/huffman_dfa.cu, dfa_count) timed with its bound and its
      plain version at the spike's two shapes (its default case and the
-     bench's shape); then the device cases
+     bench's shape); then the encoder's rate bisection
+     (csrc/rate_bisect.cu, kernels/rate_bisect.py) on the calls
+     encode_batch makes for 64 streams x 10 s (the largest full-range and
+     windowed bisection and final count of each region split), held to the
+     plain versions and timed (the kernel alone, the wrapper with its torch
+     closed-form start, the plain version) beside its bound, with its
+     registers, shared memory and blocks per SM; then the device cases
      of mp3tpu_torch.sanitize (every plane family at 1 x 1, 8 x 32, 64 x 32
      and 36 x 130, pair counts around the persistent grid times its ring's
      stages, symbols and exponents at the extremes csrc/unpack.cpp writes,
@@ -39,8 +46,10 @@ failure raises and the script exits non-zero:
      and split across windows; the chain count for count at every pairing
      of 1, 31, 33, 4,096 and 131,072 rows and its grid's width -1/0/+1 with
      8, 256, 259, 264 and 2,048 bits through count1-A and tables 13, 24 and
-     31, and on rows of real codewords against their number; decode_batch
-     of corrupted and junk streams),
+     31, and on rows of real codewords against their number; the rate
+     bisection and count at every sample rate of the encoder's tables and
+     both splits, on random and edge rows, at 1, 7, 33 rows and around its
+     grid; decode_batch of corrupted and junk streams),
      each held to its plain version: the cases that `python -m
      mp3tpu_torch.sanitize --device` runs under compute-sanitizer, where
      that tool supports the card (PERF.md: on the H100 measured it answers
@@ -129,7 +138,8 @@ the scheduler, the soak session, the transcode, the bench, the tools and
 the sharded steps, each counted from 0 just before the run, and apart from
 them the calls of the kernel phase. Only the tools path launches the
 Huffman chain (huffman_dfa: the spike measures it; no decode runs it); no
-path launches fused_frontend. The line before the last is the card's; the last
+path launches fused_frontend; the encoder's paths launch rate_bisect (a
+bisection) and rate_count (a final count). The line before the last is the card's; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX and
 nothing of mp3tpu (the JAX package); needs no LAME.
 
@@ -183,9 +193,11 @@ def log(*a):
 def _wrappers() -> dict:
     from mp3tpu_torch.kernels import fused_z as fz
     from mp3tpu_torch.kernels import huffman_dfa as hd
+    from mp3tpu_torch.kernels import rate_bisect as rb
     from mp3tpu_torch.kernels import synth as sy
     return {"fused_z": fz.fused_pipeline_z, "fused_frontend": fz.fused_frontend,
-            "synth": sy.synth_backend, "huffman_dfa": hd.dfa_count}
+            "synth": sy.synth_backend, "huffman_dfa": hd.dfa_count,
+            "rate_bisect": rb.inner_bisect, "rate_count": rb.count_rows}
 
 
 def zero_counts() -> None:
@@ -234,7 +246,8 @@ def phase_build() -> None:
     built at once; raises if any does not build or load."""
     from concurrent.futures import ThreadPoolExecutor
     from mp3tpu_torch.bitstream import native
-    from mp3tpu_torch.kernels import build, fused_z, huffman_dfa, synth
+    from mp3tpu_torch.kernels import (build, fused_z, huffman_dfa, rate_bisect,
+                                      synth)
 
     def timed_build(fn):
         t0 = time.perf_counter()
@@ -243,24 +256,27 @@ def phase_build() -> None:
     nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     log(f"build: {nvcc[-1]}")
-    with ThreadPoolExecutor(5) as ex:
+    with ThreadPoolExecutor(6) as ex:
         unpacker = ex.submit(timed_build, native._load)
         profiler = ex.submit(timed_build,
                              lambda: build.build_tool("prof_main.cpp"))
         kernels = ex.submit(timed_build, fused_z._library)
         synthesis = ex.submit(timed_build, synth._library)
         chain = ex.submit(timed_build, huffman_dfa._library)
+        rate = ex.submit(timed_build, rate_bisect._library)
         lib, s_unpack = unpacker.result()
         prof, s_prof = profiler.result()
         _, s_cuda = kernels.result()
         _, s_synth = synthesis.result()
         _, s_chain = chain.result()
+        _, s_rate = rate.result()
     if lib is None:
         raise RuntimeError("the C++ unpacker did not load (MP3TPU_NO_NATIVE "
                            "set, or no g++)")
     log(f"build: prof_main.cpp {s_prof:.2f} s -> {os.path.relpath(prof, ROOT)}")
     for src, s in (("unpack.cpp", s_unpack), ("fused_z.cu", s_cuda),
-                   ("synth.cu", s_synth), ("huffman_dfa.cu", s_chain)):
+                   ("synth.cu", s_synth), ("huffman_dfa.cu", s_chain),
+                   ("rate_bisect.cu", s_rate)):
         path = build.build(src)
         log(f"build: {src} {s:.2f} s -> {os.path.relpath(path, ROOT)}")
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -375,6 +391,7 @@ def phase_kernel(clips: dict, card: str):
                 "bound_share_warm_l2": share})
     rec["synth"] = synth_cases(tables, card)
     rec["huffman_dfa"] = dfa_timings(card)
+    rec["rate_bisect"], rec["rate_count"] = rate_timings(clips, card)
     device_cases()
     return rec, read_counts()
 
@@ -573,6 +590,134 @@ def dfa_timings(card: str) -> list:
             "bit_serial_bound_share": b["bit_serial_us"] / (1e3 * ms),
             **ptx, **cfg})
     return out
+
+
+def rate_calls(clips: dict) -> dict:
+    """The largest call of each kind that encode_batch makes for 64 streams
+    x 10 s of the clips (the encode phase's shape: the port's decode, scaled
+    per stream, at 128 kbps): {kind: (tables, args)}, kinds "<split> full"
+    and "<split> window" (a bisection) and "<split> count" (a final count),
+    split "long" or "switched/short"."""
+    import mp3tpu_torch
+    from mp3tpu_torch.kernels import rate_bisect as rb
+    dec = mp3tpu_torch.decode_batch(list(clips.values()), device="cuda")
+    pcm64 = [q16(dec[i % len(dec)][0].astype(np.float64) / 32768.0
+                 * (0.4 + 0.6 * i / 63)) for i in range(64)]
+    got = {}
+    bisect, count = rb.inner_bisect, rb.count_rows
+
+    def keep(kind, t, args):
+        if kind not in got or args[0].shape[0] > got[kind][1][0].shape[0]:
+            got[kind] = (t, args)
+
+    def spy_bisect(t, p34, sign, budgets, lo0, short, window=None):
+        split = "switched/short" if short else "long"
+        keep(f"{split} {'full' if window is None else 'window'}", t,
+             (p34, sign, budgets, lo0, short, window))
+        return bisect(t, p34, sign, budgets, lo0, short, window)
+
+    def spy_count(t, ix, short):
+        keep(f"{'switched/short' if short else 'long'} count", t, (ix, short))
+        return count(t, ix, short)
+
+    rb.inner_bisect, rb.count_rows = spy_bisect, spy_count
+    try:
+        mp3tpu_torch.encode_batch(pcm64, SR, bitrate=128, device="cuda")
+    finally:
+        rb.inner_bisect, rb.count_rows = bisect, count
+    return got
+
+
+def walked_pairs(t, p34, sign, budgets, lo0, short, window) -> tuple:
+    """(the sum of bv over the steps in which the kernel counts a row: active
+    and not over IX_MAX, the row-steps counted): the plain bisection
+    replayed."""
+    from mp3tpu_torch.encoder import vloop_device as vd
+    from mp3tpu_torch.encoder.quantize import IX_MAX
+    lo = vd._bisect_lo(p34, lo0)
+    if window is None:
+        hi, steps = torch.full_like(lo, 255), vd._FULL_STEPS
+    else:
+        hi, steps = torch.clamp(lo + (window - 1), max=255), vd._WINDOW_STEPS
+    walked = counted = 0
+    for _ in range(steps):
+        act = lo <= hi
+        mid = (lo + hi) // 2
+        ix = vd._quantize(p34, sign, mid)
+        live = act & ~(ix.abs().amax(dim=1) > IX_MAX)
+        bits, _sel, bv, _k, _c1 = vd._count_rows(t, ix, short)
+        walked += int(bv[live].sum())
+        counted += int(live.sum())
+        fits = live & (bits <= budgets)
+        hi = torch.where(fits, mid - 1, hi)
+        lo = torch.where(act & ~fits, mid + 1, lo)
+    return walked, counted
+
+
+def rate_timings(clips: dict, card: str) -> tuple:
+    """The rate bisection (csrc/rate_bisect.cu) on the calls of rate_calls:
+    each held to its plain version output for output, then timed (CUDA
+    events): the kernel alone, the wrapper (with the bisection's torch
+    closed-form start), the plain version, beside the bound at the pairs
+    the count walks (walked_pairs). Logs its registers and spills (ptxas),
+    threads, shared memory and blocks per SM first. (bisection records,
+    count records)."""
+    from mp3tpu_torch.bench import max_sm_clock_mhz
+    from mp3tpu_torch.encoder import vloop_device as vd
+    from mp3tpu_torch.kernels import rate_bisect as rb
+    from mp3tpu_torch.tools import cuda_ms
+    ptx = ptxas_report("rate_bisect.cu", "rate_bisect_kernel")
+    cfg = rb.kernel_config()
+    log(f"rate_bisect kernel: {ptx['registers']} registers, "
+        f"{ptx['spill_stores']} / {ptx['spill_loads']} bytes of spill stores / "
+        f"loads (ptxas), {cfg['threads']} threads and {cfg['smem_bytes']} bytes "
+        f"of shared memory a block, {cfg['blocks_per_sm']} blocks per SM "
+        f"(occupancy query): {rb.persistent_rows('cuda')} rows in flight")
+    clock = max_sm_clock_mhz()
+    bis, cnt = [], []
+    for kind, (t, args) in sorted(rate_calls(clips).items()):
+        rows = int(args[0].shape[0])
+        if kind.endswith("count"):
+            ix, short = args
+            kernel = lambda: rb.launch_count(t, ix, short)
+            whole = lambda: rb.count_rows(t, ix, short)
+            plain = lambda: vd._count_rows(t, ix, short)
+            want = plain()
+            walked, counted = int(want[2].sum()), rows
+        else:
+            p34, sign, budgets, lo0, short, window = args
+            lo = vd._bisect_lo(p34, lo0)
+            steps = vd._FULL_STEPS if window is None else vd._WINDOW_STEPS
+            kernel = lambda: rb.launch_bisect(t, p34, sign, budgets, lo, steps,
+                                              window or 0, short)
+            whole = lambda: rb.inner_bisect(t, *args)
+            plain = lambda: vd._inner_bisect(t, *args)
+            want = plain()
+            walked, counted = walked_pairs(t, *args)
+        got = kernel()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"rate_bisect {kind} {rows} rows: the kernel "
+                                 "differs from the plain version")
+        ms, whole_ms = cuda_ms(kernel), cuda_ms(whole)
+        plain_ms = cuda_ms(plain, reps=3, inner=1)
+        b = rb.bound(rows, walked, clock, count_only=kind.endswith("count"))
+        share = b["bound_us"] / (1e3 * ms)
+        log(f"kernel rate_bisect {kind} {rows} rows: {ms:.4f} ms ({100 * share:.1f}%"
+            f" of the bound), with the wrapper's torch start {whole_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (medians of 7 x 10 calls; plain of 3); "
+            f"{counted} row-steps counted walking {walked} pairs, "
+            f"{b['bytes']} bytes, {b['lookups']} lookups, bound "
+            f"{b['bound_us']:.2f} us by {b['bound_by']} at {clock:g} MHz "
+            f"({card})")
+        (cnt if kind.endswith("count") else bis).append({
+            "kind": kind, "rows": rows, "used_by": "encode_batch, transcode_batch",
+            "max_abs_err": 0, "ms": ms, "wrapper_ms": whole_ms,
+            "plain_ms": plain_ms, "bound_ms": b["bound_us"] / 1e3,
+            "bound_by": b["bound_by"], "library_ms": None, "bytes": b["bytes"],
+            "lookups": b["lookups"], "row_steps": counted, "walked_pairs": walked,
+            "sm_clock_mhz": clock, "bound_us": b["bound_us"],
+            "bound_share": share, **ptx, **cfg})
+    return bis, cnt
 
 
 # csrc/fused_z.cu's measurement variants: (name, macros)
@@ -2201,18 +2346,27 @@ def main() -> int:
                 "synth": "src/mp3tpu/kernels/pipeline.py:192 (jnp, no Pallas "
                          "kernel)",
                 "huffman_dfa": "tools/device_huffman_spike.py:94-109 (jnp, no "
-                               "Pallas kernel)"}
+                               "Pallas kernel)",
+                "rate_bisect": "none: src/mp3tpu/encoder/vloop_device.py's "
+                               "rate loops are jnp",
+                "rate_count": "none: src/mp3tpu/encoder/vloop_device.py's "
+                              "count is jnp"}
     sources = {"synth": "src/mp3tpu_torch/csrc/synth.cu",
-               "huffman_dfa": "src/mp3tpu_torch/csrc/huffman_dfa.cu"}
+               "huffman_dfa": "src/mp3tpu_torch/csrc/huffman_dfa.cu",
+               "rate_bisect": "src/mp3tpu_torch/csrc/rate_bisect.cu",
+               "rate_count": "src/mp3tpu_torch/csrc/rate_bisect.cu"}
+    rate_keys = ("kind", "rows", "ms", "wrapper_ms", "plain_ms", "bound_us",
+                 "bound_share")
     case_keys = {"huffman_dfa": ("case", "table", "rows", "bits", "ms",
                                  "plain_ms", "bound_us", "bound_share",
-                                 "bit_serial_bound_share")}
+                                 "bit_serial_bound_share"),
+                 "rate_bisect": rate_keys, "rate_count": rate_keys}
     kernels = []
     for name, rep in replaces.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
         if check_calls[name] <= 0:
             raise AssertionError(f"{name}: the kernel phase did not launch it")
-        head = (krec[name][0] if name == "huffman_dfa" else next(
+        head = (krec[name][0] if name in case_keys else next(
             c for c in krec[name]
             if c["S"] == 64 and c["types"] in ("int32/int16", "float32")))
         keys = case_keys.get(name, ("S", "G", "types", "used_by", "ms",

@@ -34,6 +34,11 @@ key, so that the CPU, the card, this count and the emitter always agree.
 Rows are processed in blocks sized for the device's memory (the per-pair
 length gather is [T+1, R, 288] int16); a row's result does not depend on
 the block it is in (tested).
+
+On CUDA tensors the bisection (_inner_bisect) and the final count
+(_count_rows) run in the hand-written kernel of csrc/rate_bisect.cu, one
+launch a call, through kernels/rate_bisect.py, with the same results bit for
+bit; the torch code here is their plain version, which CPU tensors run.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import os
 import numpy as np
 import torch
 
+from ..kernels import rate_bisect
 from ..transfer import HostCopy
 from .quantize import GG_WINDOW, IX_MAX, MAGIC, sf_jump_default
 from .tables import EncoderTables, band_sums, encoder_tables
@@ -64,6 +70,7 @@ _INVALID = 1 << 20
 # the window and retries next iteration without amplifying: the same final
 # semantics, implemented identically in quantize.py, vloop.py and here
 # (canonical constant in quantize.GG_WINDOW).
+_FULL_STEPS = 8      # log2(256): the bisection over [lo, 255]
 _WINDOW_STEPS = 5    # ceil(log2(GG_WINDOW))
 _TID = np.asarray(TABLE_IDS)
 
@@ -175,6 +182,20 @@ def _quantize(p34, sign, gg):
     return sign * torch.floor(p34 * scale + MAGIC).to(torch.int32)
 
 
+def _bisect_lo(p34, lo0):
+    """The bisection's start per row: lo0 raised by the closed form of the
+    scalar "+4 stepping" lower bound, the smallest lo0 + 4k with
+    amax34 * 2^(-0.75 (lo - 210) / 4) <= IX_MAX
+    <=> lo >= 210 + (4 / 0.75) * log2(amax34 / IX_MAX), at most 255."""
+    amax34 = p34.amax(dim=1)
+    need = 210.0 + (16.0 / 3.0) * (torch.log2(torch.clamp(amax34, min=1e-30))
+                                   - float(np.log2(np.float32(IX_MAX))))
+    ksteps = torch.clamp(torch.ceil((need - lo0.float()) / 4.0), min=0.0)
+    return torch.where(amax34 > 0,
+                       torch.clamp(lo0 + 4 * ksteps.to(torch.int32), max=255),
+                       lo0)
+
+
 def _inner_bisect(t, p34, sign, budgets, lo0, short_split: bool,
                   window: int | None = None):
     """Fixed-step bisection for the smallest fitting gg per row, over
@@ -185,18 +206,10 @@ def _inner_bisect(t, p34, sign, budgets, lo0, short_split: bool,
     advances gg_lo to next_lo and retries); next_lo = min(adjusted_lo +
     window, 255)."""
     R = p34.shape[0]
-    amax34 = p34.amax(dim=1)
-    # closed form of the scalar "+4 stepping" lower bound: smallest
-    # lo0 + 4k with amax34 * 2^(-0.75 (lo - 210) / 4) <= IX_MAX
-    # <=> lo >= 210 + (4 / 0.75) * log2(amax34 / IX_MAX)
-    need = 210.0 + (16.0 / 3.0) * (torch.log2(torch.clamp(amax34, min=1e-30))
-                                   - float(np.log2(np.float32(IX_MAX))))
-    ksteps = torch.clamp(torch.ceil((need - lo0.float()) / 4.0), min=0.0)
-    lo = torch.where(amax34 > 0,
-                     torch.clamp(lo0 + 4 * ksteps.to(torch.int32), max=255), lo0)
+    lo = _bisect_lo(p34, lo0)
     if window is None:
         hi = torch.full_like(lo, 255)
-        steps = 8
+        steps = _FULL_STEPS
     else:
         hi = torch.clamp(lo + (window - 1), max=255)
         steps = _WINDOW_STEPS
@@ -278,7 +291,7 @@ def _outer_long(t: EncoderTables, xr, xmin, budget_bits, max_iters: int,
 
         amp_line = amp_of(sf)
         p34 = p34_base * amp_line ** 0.75
-        gg, has, capped, next_lo = _inner_bisect(
+        gg, has, capped, next_lo = rate_bisect.inner_bisect(
             t, p34, sign, budget, gg_lo, switched, window)
         upd = ~done & has
         best_gg = torch.where(upd, gg, best_gg)
@@ -300,7 +313,7 @@ def _outer_long(t: EncoderTables, xr, xmin, budget_bits, max_iters: int,
 
     if not bool(has_best.all()):
         # rows that never fit under shaping: plain rate loop, sf = 0
-        gg_fb, has_fb, _c, _n = _inner_bisect(
+        gg_fb, has_fb, _c, _n = rate_bisect.inner_bisect(
             t, p34_base, sign, budget_bits, i32(0), switched)
         best_gg = torch.where(has_best, best_gg, gg_fb)
         best_sf = torch.where(has_best[:, None], best_sf, 0)
@@ -311,7 +324,7 @@ def _outer_long(t: EncoderTables, xr, xmin, budget_bits, max_iters: int,
     # spectrum IS this ix: the host never requantizes)
     ix = _quantize(p34_base * amp_of(best_sf) ** 0.75, sign, best_gg)
     ix = torch.where(has_any[:, None], ix, 0)
-    bits, selr, _bv, _k, c1sel = _count_rows(t, ix, switched)
+    bits, selr, _bv, _k, c1sel = rate_bisect.count_rows(t, ix, switched)
     return dict(gg=best_gg, sf=best_sf, has=has_any, ix=ix.to(torch.int16),
                 bits=bits, selr=selr, c1=c1sel, conv=done, iters=iters)
 
@@ -355,7 +368,7 @@ def _outer_short(t: EncoderTables, xr, xmin, budget_bits, max_iters: int,
 
         amp = amp_of(sf, sbg)
         p34 = p34_base * amp ** 0.75
-        gg, has, capped, next_lo = _inner_bisect(
+        gg, has, capped, next_lo = rate_bisect.inner_bisect(
             t, p34, sign, budget, gg_lo, True, window)
         upd = ~done & has
         best_gg = torch.where(upd, gg, best_gg)
@@ -384,7 +397,7 @@ def _outer_short(t: EncoderTables, xr, xmin, budget_bits, max_iters: int,
         sf = torch.where(exceed[:, :, None], torch.minimum(sf, sf_cap), sf)
 
     if not bool(has_best.all()):
-        gg_fb, has_fb, _c, _n = _inner_bisect(
+        gg_fb, has_fb, _c, _n = rate_bisect.inner_bisect(
             t, p34_base, sign, budget_bits, i32(0), True)
         best_gg = torch.where(has_best, best_gg, gg_fb)
         best_sf = torch.where(has_best[:, None, None], best_sf, 0)
@@ -394,7 +407,7 @@ def _outer_short(t: EncoderTables, xr, xmin, budget_bits, max_iters: int,
         has_any = has_best
     ix = _quantize(p34_base * amp_of(best_sf, best_sbg) ** 0.75, sign, best_gg)
     ix = torch.where(has_any[:, None], ix, 0)
-    bits, selr, _bv, _k, c1sel = _count_rows(t, ix, True)
+    bits, selr, _bv, _k, c1sel = rate_bisect.count_rows(t, ix, True)
     return dict(gg=best_gg, sf=best_sf, sbg=best_sbg, has=has_any,
                 ix=ix.to(torch.int16), bits=bits, selr=selr, c1=c1sel,
                 conv=done, iters=iters)
@@ -404,11 +417,11 @@ def _rate_only(t: EncoderTables, xr, budgets, short_split: bool) -> dict:
     """Rate-only bisection over one block (no shaping)."""
     p34 = xr.abs() ** 0.75
     sign = torch.sign(xr).to(torch.int32)
-    gg, has, _c, _n = _inner_bisect(t, p34, sign, budgets,
-                                    torch.zeros_like(budgets), short_split)
+    gg, has, _c, _n = rate_bisect.inner_bisect(
+        t, p34, sign, budgets, torch.zeros_like(budgets), short_split)
     ix = _quantize(p34, sign, gg)
     ix = torch.where(has[:, None], ix, 0)
-    bits, selr, _bv, _k, c1sel = _count_rows(t, ix, short_split)
+    bits, selr, _bv, _k, c1sel = rate_bisect.count_rows(t, ix, short_split)
     return dict(gg=gg, has=has, ix=ix.to(torch.int16), bits=bits, selr=selr,
                 c1=c1sel)
 

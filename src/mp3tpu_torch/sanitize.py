@@ -26,7 +26,10 @@ Three parts:
   the state; csrc/huffman_dfa.cu at 1, 31, 33, 4,096 and 131,072 rows
   and around its persistent grid's width, at 8 to 2,048 bits a row, some
   not a multiple of 32, through every kind of automaton, on random bits
-  and on real codewords), each held to its plain version, and
+  and on real codewords; csrc/rate_bisect.cu's bisection, full range and
+  windowed, and its count, at every sample rate of the encoder's tables and
+  both region splits, on random rows and edge rows, at 1, 7 and 33 rows and
+  around its persistent grid's rows), each held to its plain version, and
   decode_batch of clean,
   corrupted (soak.py's three kinds) and junk streams. On the card each
   kernel case launches RERUNS times, bit-identical, into outputs between
@@ -426,6 +429,8 @@ SYNTH_SHAPES = ((1, 32), (8, 32), (64, 32), (256, 32), (36, 130),
 # the cases is finite); each kernel case launches RERUNS times
 GUARD = 4096
 GUARD_BITS = 0x7FC0DEAD
+# the guard of a one-byte output (bool): neither 0 nor 1
+GUARD_BYTE = 0xAD
 RERUNS = 3
 SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 # the child's groups of cases, the kernel compute-sanitizer checks in each
@@ -433,6 +438,7 @@ SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 GROUPS = {"fused_z": ("fused_z_kernel", SANITIZER_TOOLS),
           "synth": ("synth_kernel", SANITIZER_TOOLS),
           "huffman_dfa": ("dfa_count_kernel", SANITIZER_TOOLS),
+          "rate_bisect": ("rate_bisect_kernel", SANITIZER_TOOLS),
           "decode": (None, ("memcheck", "initcheck"))}
 ERROR_EXIT = 86
 # the chain's cases: every pairing of DFA_ROWS rows (and the persistent
@@ -538,9 +544,14 @@ def synth_cases(device) -> list:
 def guarded(shape: tuple, device, dtype=None):
     """(buffer, view): int32 words of GUARD_BITS, GUARD before and after a
     view of `shape` in the middle (16-byte aligned), float32 unless `dtype`
-    (a 4-byte type), for a kernel to write into."""
+    (a 4-byte type), for a kernel to write into; for a one-byte `dtype`
+    (bool), bytes of GUARD_BYTE."""
     import torch
     n = int(np.prod(shape))
+    if dtype is not None and dtype.itemsize == 1:
+        buf = torch.full((2 * GUARD + n,), GUARD_BYTE, dtype=torch.uint8,
+                         device=device)
+        return buf, buf[GUARD:GUARD + n].view(dtype).view(shape)
     buf = torch.full((2 * GUARD + n,), GUARD_BITS, dtype=torch.int32,
                      device=device)
     return buf, buf[GUARD:GUARD + n].view(dtype or torch.float32).view(shape)
@@ -549,11 +560,13 @@ def guarded(shape: tuple, device, dtype=None):
 def check_guards(buf, n: int, what: str) -> None:
     """Raise unless both guard bands of a guarded() buffer of n values are
     untouched (no write outside the output) and no value of the output
-    still holds GUARD_BITS (every value written)."""
+    still holds GUARD_BITS (GUARD_BYTE in a one-byte buffer: every value
+    written)."""
     import torch
+    fill = GUARD_BYTE if buf.dtype == torch.uint8 else GUARD_BITS
     band = torch.cat([buf[:GUARD], buf[GUARD + n:]])
-    outside = int((band != GUARD_BITS).sum())
-    unwritten = int((buf[GUARD:GUARD + n] == GUARD_BITS).sum())
+    outside = int((band != fill).sum())
+    unwritten = int((buf[GUARD:GUARD + n] == fill).sum())
     if outside or unwritten:
         raise AssertionError(f"{what}: {outside} words written outside the "
                              f"output, {unwritten} of its {n} values never "
@@ -732,6 +745,204 @@ def run_dfa(device, width: int | None = None) -> list:
     return recs
 
 
+def rate_rates() -> list:
+    """Every sample rate of the encoder's tables (tables.sfb.LONG)."""
+    from .tables.sfb import LONG
+    return sorted(LONG)
+
+
+def rate_ix_rows(rng, n: int):
+    """int32 [n + 166, 576] quantized rows for the count: n random rows
+    (decaying magnitudes, some with escapes, a count1 stretch, a zero tail),
+    then edge rows: all zero; all ones; one line at IX_MAX and one just over
+    it; the deepest escape at the first pair, the middle pair and the last
+    pair; one line 15 + 2^L - 1 and one 15 + 2^L for every linbits L; rows
+    whose big values end at every even pair 0 .. 288 (bv: every region empty
+    in turn), each with a count1 stretch where there is room."""
+    from .encoder.quantize import IX_MAX
+    rows = np.zeros((n, 576), np.int64)
+    for i in range(n):
+        live = int(rng.integers(8, 577))
+        scale = float(rng.choice([1, 2, 8, 30, 120, 900, 6000]))
+        mag = rng.standard_normal(live) * scale * np.exp(
+            -3.0 * np.arange(live) / live)
+        rows[i, :live] = np.rint(mag)
+        c1 = int(rng.integers(0, 60)) * 4
+        lo = max(live - c1, 0)
+        rows[i, lo:live] = rng.integers(-1, 2, live - lo)
+    edge = [np.zeros(576, np.int64), np.ones(576, np.int64)]
+    for v in (IX_MAX, IX_MAX + 1):
+        r = np.zeros(576, np.int64)
+        r[3] = -v
+        edge.append(r)
+    for line in (0, 288, 575):
+        r = np.zeros(576, np.int64)
+        r[line] = IX_MAX
+        edge.append(r)
+    for L in range(14):
+        r = np.zeros(576, np.int64)
+        r[10], r[41] = 15 + (1 << L) - 1, -(15 + (1 << L))
+        edge.append(r)
+    for bv in range(0, 289, 2):
+        r = np.zeros(576, np.int64)
+        r[:2 * bv] = np.where(np.arange(2 * bv) % 3, 2, -3)
+        r[2 * bv:2 * bv + 16] = np.resize([1, 0, -1, 1], 16)[:576 - 2 * bv]
+        edge.append(r)
+    return np.concatenate([rows, np.stack(edge)]).astype(np.int32)
+
+
+def ix_max_edge(g: int, device="cpu") -> tuple:
+    """(at, over): the neighbouring float32 p34 values that quantize at
+    global gain g to IX_MAX and to IX_MAX + 1, by _quantize's float32 ops on
+    `device` with its gain scale there (kernels/rate_bisect.gain_scale)."""
+    import torch
+    from .encoder.quantize import IX_MAX, MAGIC
+    from .kernels.rate_bisect import gain_scale
+    s = gain_scale(torch.device(device))[g]
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=s.device)
+    q = lambda v: int(torch.floor(v * s + MAGIC))
+    x = f32((IX_MAX + 1 - MAGIC) / float(s))
+    up = lambda v: torch.nextafter(v, f32(float("inf")))
+    while q(x) > IX_MAX:
+        x = torch.nextafter(x, f32(0.0))
+    while q(up(x)) <= IX_MAX:
+        x = up(x)
+    return float(x), float(up(x))
+
+
+def rate_spectra(rng, n: int) -> tuple:
+    """(p34 float32, sign int32 [n + 23, 576], budgets, lo0 int32) for the
+    bisection: n random spectra (decaying, zero tails; p34 = |xr|^0.75),
+    budgets from -50 to 4,000 and starts from 0 to 120; then edge rows: all
+    zero; a count1-only row; one line at IX_MAX and one just over it
+    (ix_max_edge) at each of five gains, at the first and at the last line,
+    searched from that gain under a budget no row exceeds; a row under a
+    budget of -1."""
+    xr = (rng.standard_normal((n + 1, 576))
+          * np.exp(-np.arange(576)[None] / rng.uniform(40, 200, (n + 1, 1)))
+          * rng.uniform(1e-3, 4.0, (n + 1, 1)))
+    for i in range(n):
+        xr[i, int(rng.integers(16, 577)):] = 0.0
+    p34 = [np.abs(xr[:n]) ** 0.75, np.zeros((1, 576)), np.full((1, 576), 0.5)]
+    sign = [np.sign(xr[:n]), np.zeros((1, 576)), np.ones((1, 576))]
+    budgets = list(rng.integers(-50, 4000, n)) + [4000, 4000]
+    lo0 = list(rng.integers(0, 121, n)) + [0, 0]
+    for g in (0, 60, 150, 210, 255):
+        for v in ix_max_edge(g):
+            for line in (0, 575):
+                r = np.zeros((1, 576))
+                r[0, line] = v
+                p34.append(r)
+                sign.append(np.where(r > 0, -1.0, 0.0))
+                budgets.append(100000)
+                lo0.append(g)
+    p34.append(np.abs(xr[n:]) ** 0.75)
+    sign.append(np.sign(xr[n:]))
+    budgets.append(-1)
+    lo0.append(0)
+    return (np.concatenate(p34).astype(np.float32),
+            np.concatenate(sign).astype(np.int32),
+            np.asarray(budgets, np.int32), np.asarray(lo0, np.int32))
+
+
+def rate_cases(device, width: int):
+    """Yields (label, sample_rate, mode, args) of the rate bisection's cases:
+    mode "count" with args (ix, short_split), or "full" / "window" with
+    args (p34, sign, budgets, lo0, short_split); at every rate_rates() rate
+    and both splits on rate_ix_rows(64) and rate_spectra(64), then at 1, 7,
+    33 and a persistent grid of `width` rows, one less and one more (44.1
+    kHz, the long split) on random rows."""
+    import torch
+    rng = np.random.default_rng(17)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    ix = t(rate_ix_rows(rng, 64))
+    sp = tuple(t(a) for a in rate_spectra(rng, 64))
+    for sr in rate_rates():
+        for short in (False, True):
+            at = f"{sr} Hz {'short' if short else 'long'} split"
+            yield f"count {at} {ix.shape[0]} rows", sr, "count", (ix, short)
+            for mode in ("full", "window"):
+                yield (f"bisect {mode} {at} {sp[0].shape[0]} rows", sr, mode,
+                       sp + (short,))
+    for rows in sorted({1, 7, 33, width - 1, width, width + 1}):
+        rix = t(rate_ix_rows(rng, rows)[:rows])
+        yield (f"count 44100 Hz long split {rows} rows", 44100, "count",
+               (rix, False))
+        args = tuple(t(a[:rows]) for a in rate_spectra(rng, rows)) + (False,)
+        for mode in ("full", "window"):
+            yield (f"bisect {mode} 44100 Hz long split {rows} rows", 44100,
+                   mode, args)
+
+
+def guarded_rate(t, mode: str, args, what: str) -> tuple:
+    """csrc/rate_bisect.cu into guarded outputs; raises if it wrote outside
+    them or left a value unwritten."""
+    import torch
+    from .encoder import vloop_device as vd
+    from .encoder.quantize import GG_WINDOW
+    from .kernels import rate_bisect as rb
+    dev = args[0].device
+    R = args[0].shape[0]
+    if mode == "count":
+        ix, short = args
+        bufs = [guarded(s, dev, torch.int32)
+                for s in ((R,), (R, 3), (R,), (R,), (R,))]
+        rb.launch_count(t, ix, short, out=tuple(o for _, o in bufs))
+    else:
+        p34, sign, budgets, lo0, short = args
+        full = mode == "full"
+        bufs = [guarded((R,), dev, dt) for dt in
+                (torch.int32, torch.bool, torch.bool, torch.int32)]
+        rb.launch_bisect(t, p34, sign, budgets, vd._bisect_lo(p34, lo0),
+                         vd._FULL_STEPS if full else vd._WINDOW_STEPS,
+                         0 if full else GG_WINDOW, short,
+                         out=tuple(o for _, o in bufs))
+    torch.cuda.synchronize(dev)
+    for i, (buf, out) in enumerate(bufs):
+        check_guards(buf, out.numel(), f"rate_bisect {what}: output {i}")
+    return tuple(out for _, out in bufs)
+
+
+def run_rate(device, width: int | None = None) -> list:
+    """Every rate bisection case (rate_cases around `width`, by default the
+    card's persistent grid) equal, output for output, to the plain version's
+    (vloop_device._count_rows, _inner_bisect); on a card the kernel,
+    launched RERUNS times into guarded outputs, bit-identical each time.
+    Records."""
+    import torch
+    from .encoder import vloop_device as vd
+    from .encoder.quantize import GG_WINDOW
+    from .encoder.tables import encoder_tables
+    from .kernels import rate_bisect as rb
+    on_card = torch.device(device).type == "cuda"
+    if width is None:
+        width = rb.persistent_rows(device) if on_card else 4224
+    recs = []
+    for label, sr, mode, args in rate_cases(device, width):
+        t = encoder_tables(sr, device)
+        if mode == "count":
+            want = vd._count_rows(t, *args)
+        else:
+            p34, sign, budgets, lo0, short = args
+            want = vd._inner_bisect(t, p34, sign, budgets, lo0, short,
+                                    None if mode == "full" else GG_WINDOW)
+        got = want
+        if on_card:
+            runs = [guarded_rate(t, mode, args, label) for _ in range(RERUNS)]
+            got = runs[0]
+            if not all(torch.equal(a, b) for r in runs[1:]
+                       for a, b in zip(got, r)):
+                raise AssertionError(f"rate_bisect {label}: launches differ")
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a, b):
+                n = int((a != b).reshape(a.shape[0], -1).any(1).sum())
+                raise AssertionError(f"rate_bisect {label}: output {i} differs "
+                                     f"from the plain version's in {n} rows")
+        recs.append({"kernel": "rate_bisect", "case": label, "max_abs_err": 0,
+                     "rows": int(args[0].shape[0]), "worst_over_tol": 0.0})
+    return recs
+
+
 def junk_stream(clip: bytes, n_frames: int, seed: int) -> bytes:
     """Random bytes with a real frame header of `clip` planted at every
     frame's start: the container scan finds `n_frames` frames whose side
@@ -802,7 +1013,7 @@ def run_decode(device) -> list:
 
 
 RUNNERS = {"fused_z": run_fused, "synth": run_synth, "huffman_dfa": run_dfa,
-           "decode": run_decode}
+           "rate_bisect": run_rate, "decode": run_decode}
 
 
 def run_device_cases(device="cuda", groups=tuple(GROUPS)) -> list:

@@ -281,12 +281,19 @@ def test_decode_files_spans(spans_on, small_chunks, name, passes):
 def test_encode_and_transcode_phases_share_a_request(spans_on, small_chunks):
     mp3s = mp3tpu_torch.encode_batch(short_pcms(), SR, device="cpu")
     [enc] = spans("mp3tpu.encode_batch")
-    phases = [s for s in spans() if s["name"].startswith("mp3tpu.encode.")]
+    phases = [s for s in spans() if s["name"].startswith("mp3tpu.encode.")
+              and s["name"] != "mp3tpu.encode.bisect"]
     assert {s["name"] for s in phases} >= {
         "mp3tpu.encode." + p for p in ("host_prep", "stage", "transform_psy",
                                        "passA", "passB", "emit", "mux")}
     assert all(s["request"] == enc["request"] and s["parent"] == enc["id"]
                for s in phases)
+    # the rate loops' bisections are spans inside the passes
+    loops = {s["id"] for s in phases if s["name"] in ("mp3tpu.encode.passA",
+                                                      "mp3tpu.encode.passB")}
+    bisects = spans("mp3tpu.encode.bisect")
+    assert bisects and all(s["parent"] in loops and s["outcome"] == "plain"
+                           for s in bisects)
     clear()
     mp3tpu_torch.transcode_batch(mp3s, bitrate=96, device="cpu")
     [root] = spans("mp3tpu.transcode_batch")
@@ -299,7 +306,10 @@ def test_encode_and_transcode_phases_share_a_request(spans_on, small_chunks):
     assert intake["parent"] == enc["id"] and intake["items"] == 2
     assert spans("mp3tpu.device_records")[0]["parent"] != 0
     for s in spans():
-        if s["name"].startswith("mp3tpu.encode."):
+        if s["name"] == "mp3tpu.encode.bisect":
+            assert tree[s["parent"]]["name"] in ("mp3tpu.encode.passA",
+                                                 "mp3tpu.encode.passB")
+        elif s["name"].startswith("mp3tpu.encode."):
             assert s["parent"] == enc["id"]
         elif s["name"] in ("mp3tpu.scan", "mp3tpu.unpack"):
             assert tree[s["parent"]]["name"] == "mp3tpu.decode_files"
