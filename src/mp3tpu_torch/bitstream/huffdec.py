@@ -132,16 +132,16 @@ def decode_spectrum(br: GranuleBits, g, sample_rate: int, lsf: bool,
     hard_overrun = False
     # big values
     while pos < bv2:
+        tid = ts[0] if pos < r1 else (ts[1] if pos < r2 else ts[2])
+        lut = _BIG_LUTS.get(tid)
+        if lut is None:  # table 0 (all-zero) or unused spec ids 4/14
+            pos += 2     # no bits: a granule may end its bits before them
+            continue
         # corrupt streams: big_values may claim more symbols than
         # part2_3_length holds — stop at the granule bit boundary
         if br.pos >= end_pos:
             hard_overrun = True
             break
-        tid = ts[0] if pos < r1 else (ts[1] if pos < r2 else ts[2])
-        lut = _BIG_LUTS.get(tid)
-        if lut is None:  # table 0 (all-zero) or unused spec ids 4/14
-            pos += 2
-            continue
         entry = int(lut.table[br.peek(lut.bits)])
         l = entry & 0xFF
         if l == 0:

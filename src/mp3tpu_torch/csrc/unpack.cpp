@@ -815,15 +815,10 @@ static inline __attribute__((always_inline)) bool spec_step(SpecCtx& s) {
                 if (s.lim <= s.pos) continue;
                 int tid = s.region_tid[s.reg];
                 // table 0 = all-zero; ids 4/14 are unused in the spec —
-                // corrupt streams selecting them decode as zeros (and
-                // consume no bits; the per-region end check still
-                // applies, matching the Python unpacker bit-for-bit)
+                // corrupt streams selecting them decode as zeros. Such a
+                // region consumes no bits, so a granule whose bits end
+                // where it starts has not overrun (as the Python unpacker)
                 if (tid == 0 || g_luts[tid].root.empty()) {
-                    if (cur.used() >= s.limit) {
-                        out->overrun = true;
-                        s.phase = 1;
-                        return true;
-                    }
                     s.pos = s.lim;
                     continue;
                 }

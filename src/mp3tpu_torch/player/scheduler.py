@@ -15,6 +15,14 @@ copy and not for window w+1's decode. The host arrays of a step are fresh
 for every step, so nothing the device may still read is written again.
 
 All streams in one scheduler share a sample rate.
+
+Spans (utils.profiling, kept while recording is on): mp3tpu.sched.pack
+(each _pack_dispatch; items the slots holding a live stream in its step)
+and mp3tpu.sched.route (each _materialize_route: the wait for the step's
+host copy and the sink pushes; items the slots its copy carries), both
+with the attr n_slots. decode_batch_streams adds mp3tpu.sched.load (each
+load_source) and mp3tpu.sched.unpack (each whole-stream unpack; items its
+granules) under its root, mp3tpu.decode_batch_streams.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from ..kernels import pipeline as kp
 from ..kernels.tables import state_from_numpy, state_to_numpy
 from ..metrics import Metrics, record_resyncs, record_symbol_errors
 from ..transfer import HostCopy
+from ..utils.profiling import annotate, request
 from .sink import CollectSink, Sink, take_underruns
 
 
@@ -151,6 +160,12 @@ class StreamScheduler:
     def _pack_dispatch(self):
         """Pack and enqueue one window. Returns a routing plan (the PCM's
         host copy in flight + per-slot slices) or None when idle."""
+        with annotate("mp3tpu.sched.pack", n_slots=self.S) as sp:
+            plan = self._pack()
+            sp.items = len(plan["entries"]) if plan else 0
+        return plan
+
+    def _pack(self):
         S, W = self.S, self.win
         self._refill()
         if self.n_active == 0:
@@ -214,6 +229,10 @@ class StreamScheduler:
 
     def _materialize_route(self, plan) -> int:
         """Wait for the window's PCM on the host and route it to sinks."""
+        with annotate("mp3tpu.sched.route", self.S, n_slots=self.S):
+            return self._route(plan)
+
+    def _route(self, plan) -> int:
         with self.metrics.span("device"):
             pcm16 = plan["pcm"].numpy()
         self.trace.append(("route", plan["seq"]))
@@ -344,31 +363,42 @@ def decode_batch_streams(paths_or_bytes, n_slots: int = 64, win: int = 32,
         else:
             with open(p, "rb") as f:
                 datas.append(f.read())
-    # load_source skips ID3 regions and a leading Xing/Info frame, as the
-    # single-file decode does; the batch unpacks whole streams
-    loaded = [load_source(d) for d in datas]
-    infos = [info for _src, info, _index in loaded]
-    # container resyncs are booked here: submit() books them only for
-    # byte inputs
-    for _src, _info, index in loaded:
-        record_resyncs(index.resyncs)
-    symbols = [src.whole() for src, _info, _index in loaded]
-    rates = {st.sample_rate for st in symbols}
-    out: list = [None] * len(datas)
-    for rate in sorted(rates):
-        idxs = [i for i, st in enumerate(symbols) if st.sample_rate == rate]
-        sched = StreamScheduler(n_slots=min(n_slots, len(idxs)), win=win,
-                                sample_rate=rate, device=device)
-        sinks = {}
-        for i in idxs:
-            sinks[i] = CollectSink()
-            # the bounds of load_source's parse (the JAX package scans each
-            # stream a second time for them, in gapless_bounds_of)
-            bounds = (info_bounds(infos[i], symbols[i].n_granules) if gapless
-                      else (0, None))
-            sched.submit(symbols[i], sink=sinks[i], stream_id=i,
-                         bounds=bounds)
-        sched.run()
-        for i in idxs:
-            out[i] = (sinks[i].pcm, rate)
-    return (out, infos) if return_info else out
+
+    def load(d):
+        with annotate("mp3tpu.sched.load", 1):
+            return load_source(d)
+
+    def whole(src):
+        with annotate("mp3tpu.sched.unpack", src.n_granules):
+            return src.whole()
+
+    with request("mp3tpu.decode_batch_streams", len(datas)):
+        # load_source skips ID3 regions and a leading Xing/Info frame, as
+        # the single-file decode does; the batch unpacks whole streams
+        loaded = [load(d) for d in datas]
+        infos = [info for _src, info, _index in loaded]
+        # container resyncs are booked here: submit() books them only for
+        # byte inputs
+        for _src, _info, index in loaded:
+            record_resyncs(index.resyncs)
+        symbols = [whole(src) for src, _info, _index in loaded]
+        rates = {st.sample_rate for st in symbols}
+        out: list = [None] * len(datas)
+        for rate in sorted(rates):
+            idxs = [i for i, st in enumerate(symbols)
+                    if st.sample_rate == rate]
+            sched = StreamScheduler(n_slots=min(n_slots, len(idxs)), win=win,
+                                    sample_rate=rate, device=device)
+            sinks = {}
+            for i in idxs:
+                sinks[i] = CollectSink()
+                # the bounds of load_source's parse (the JAX package scans
+                # each stream a second time for them, in gapless_bounds_of)
+                bounds = (info_bounds(infos[i], symbols[i].n_granules)
+                          if gapless else (0, None))
+                sched.submit(symbols[i], sink=sinks[i], stream_id=i,
+                             bounds=bounds)
+            sched.run()
+            for i in idxs:
+                out[i] = (sinks[i].pcm, rate)
+        return (out, infos) if return_info else out
