@@ -5,8 +5,13 @@ aggregate-throughput path: many streams encode together, and the spectra
 stay DEVICE-RESIDENT from the analysis transform through the rate loops;
 the host sees only small control tensors plus the coded bytes:
 
-  stage PCM            once, from pinned memory (int16 where the samples
-                       are int16-origin)
+  stage PCM            once: int16-origin streams quantized on the host
+                       into a reused pinned int16 buffer, one H2D, then
+                       trimmed and dequantized on the device; other input
+                       as float32
+  block-type labels    float64 sub-block energies on the device (for
+                       int16-origin input; on the host otherwise), the
+                       decision on the host
   E1+E2 transform      device -> spectra [B*nch, G, 576]
   E3 psymodel 2        device, on the SAME staged pcm
   MS decision + xmin   device (energies down, masks up: KBs)
@@ -44,7 +49,8 @@ from . import vloop, vloop_device
 from .huffcode import encode_granule
 from .mux import FrameSizer, ReservoirMux, build_xing_frame, \
     frame_capacity_bits
-from .psymodel import MDCT_ALIGN, align_to_mdct, block_type_sequence
+from .psymodel import (MDCT_ALIGN, align_to_mdct, block_type_sequence,
+                       block_types_from_subblock_energy)
 from . import ENCODER_DELAY, SPF, SR_IDX
 from .tables import band_sums, encoder_tables
 
@@ -152,10 +158,16 @@ def encode_batch(pcms, sample_rate: int | None = None,
     energy reduction: no staging H2D and no decode D2H. sample_rate
     is inferred from the handle (must be uniform), and the encode runs
     where the handle's PCM lies. Output is bit-identical to encoding the
-    handle's .numpy() PCM, except that transient labels derive from f32
-    device energies instead of f64 host energies (same decision logic,
-    ULP-level input difference). Host-fallback records and mixed channel
-    counts materialize to the host path (correct, not zero-copy).
+    handle's .numpy() PCM: the float64 device energies that the labels are
+    decided from equal the host's float64 ones exactly for int16 PCM.
+    Host-fallback records and mixed channel counts materialize to the host
+    path (correct, not zero-copy).
+
+    A float batch whose every sample is int16-origin (k/32768) is staged the
+    same way: quantized once on the host into int16, one H2D, labels from
+    the device's energies. Any other float batch is staged as float32 and
+    labelled on the host; both give the bytes of the float32 staging with
+    float64 host labels.
 
     Unset parameters fall back to the active EncodeConfig (SURVEY.md
     §5.6), mirroring encode_pcm. device ("cuda" unless given) is where the
@@ -294,8 +306,9 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
                   phases) -> list[bytes]:
     """encode_batch on resolved arguments: float64 arrays [n, nch] (recs
     None), or the DecodedBatch's device records."""
+    from . import device as tdev
     from .device import (gather_rows, granule_spectra_device_handle,
-                         stage_pcm, subblock_energy)
+                         stage_int16, stage_pcm, subblock_energy)
     on_card = device.type == "cuda"
     _prof = phases.prof
     _ph = phases.walls
@@ -309,26 +322,22 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
     sr_idx = SR_IDX[sample_rate]
     br_idx = BITRATES_V1_L3.index(bitrate)
 
-    # ---- per-stream padding / block types -------------------------------
-    G_s, pad_s, bts_s, encpad_s = [], [], [], []
+    # ---- per-stream granule counts --------------------------------------
+    G_s, encpad_s = [], []
     ns = ([len(a) for a in arrs] if recs is None
           else [int(r[3] - r[2]) for r in recs])
-    for s, n in enumerate(ns):
+    for n in ns:
         total_needed = n + ENCODER_DELAY + 529
         G = -(-total_needed // SPF)
         G += G & 1
         G_s.append(G)
         encpad_s.append(G * SPF - ENCODER_DELAY - n)
-        if recs is not None:
-            continue  # PCM stays on device; labels after the gather
-        padded = np.zeros((G * SPF, nch))
-        padded[:n] = arrs[s]
-        pad_s.append(padded)
     Gmax = max(G_s)
 
     # ---- stage once; transform + psymodel on device ---------------------
     phases.start("stage")
     T = Gmax * SPF
+    pcm_bnt = None
     if recs is not None:
         # one gather per run of streams sharing a decode chunk: trim +
         # dequantize + zero-pad in device memory (device.gather_rows)
@@ -344,20 +353,35 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
                 [recs[j][2] for j in range(i, k)], ns[i:k], T, nch))
             i = k
         pcm_bnt = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
-        if short_blocks:
-            # reduction on device, decision on host: same semantics as
-            # the host path (shared block_types_from_subblock_energy);
-            # energies are f32 here vs f64 there (ULP-level, tested)
-            from .psymodel import block_types_from_subblock_energy
-            e = subblock_energy(pcm_bnt, MDCT_ALIGN).cpu().numpy().astype(
-                np.float64)                                 # [B, T // 64]
-            bts_s = [block_types_from_subblock_energy(e[s, : G_s[s] * 9])
-                     for s in range(B)]
-        else:
-            bts_s = [np.zeros(G, np.int64) for G in G_s]
+    elif not tdev.FORCE_F32_STAGE:
+        # int16-origin streams: one int16 pass on the host, one H2D, and
+        # the same gather as the transcode's
+        chunk = stage_int16(arrs, device)
+        if chunk is not None:
+            pcm_bnt = gather_rows(chunk, range(B), [0] * B, ns, T, nch)
+            del chunk
+    if pcm_bnt is not None:
+        # labels from float64 device energies: reduction on the device,
+        # decision on the host (the shared block_types_from_subblock_energy);
+        # for int16-origin PCM the energies, and so the labels, are the
+        # host's float64 ones exactly (device.subblock_energy)
+        with annotate("mp3tpu.encode.labels", B) as sp:
+            sp.outcome = "device"
+            if short_blocks:
+                e = subblock_energy(pcm_bnt, MDCT_ALIGN).cpu().numpy()
+                bts_s = [block_types_from_subblock_energy(e[s, : G_s[s] * 9])
+                         for s in range(B)]
+            else:
+                bts_s = [np.zeros(G, np.int64) for G in G_s]
         pcm_dev = pcm_bnt.reshape(B * nch, T)
+        del pcm_bnt  # so that `del pcm_dev` below frees the staged PCM
         staged_i16 = True
     else:
+        pad_s = []
+        for s, n in enumerate(ns):
+            padded = np.zeros((G_s[s] * SPF, nch))
+            padded[:n] = arrs[s]
+            pad_s.append(padded)
         pcm_b = np.zeros((B * nch, T), np.float32)
         for s in range(B):
             for c in range(nch):
@@ -368,9 +392,11 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
         # chain, so unshifted labels switch one granule early), computed
         # after the staging copy is queued, so that this host work runs
         # beside it
-        bts_s = [block_type_sequence(align_to_mdct(pad_s[s]), sample_rate)
-                 if short_blocks else np.zeros(G_s[s], np.int64)
-                 for s in range(B)]
+        with annotate("mp3tpu.encode.labels", B) as sp:
+            sp.outcome = "host"
+            bts_s = [block_type_sequence(align_to_mdct(pad_s[s]), sample_rate)
+                     if short_blocks else np.zeros(G_s[s], np.int64)
+                     for s in range(B)]
     bts_b = np.zeros((B * nch, Gmax), np.int64)
     for s in range(B):
         for c in range(nch):

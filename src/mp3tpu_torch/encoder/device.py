@@ -13,10 +13,12 @@ torch leaves it by default). Matches the numpy transform to float32 accuracy
 
 Also here: staging of encoder input (int16 where every sample is
 int16-origin), the gather of trimmed stream rows out of a device-resident
-DecodedBatch chunk, and the sub-block energies that block-type labels are
-decided from.
+DecodedBatch chunk, and the float64 sub-block energies that block-type labels
+are decided from.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -130,6 +132,66 @@ def stage_pcm(pcm_b: np.ndarray, device="cuda"):
     return _to_device(i16, device).float() * (1.0 / 32768.0), True
 
 
+# the staging buffer that stage_int16 reuses across calls, and the event after
+# the last copy out of it
+_STAGE: dict = {"buf": None, "copied": None}
+_STAGE_LOCK = threading.Lock()
+STAGE_SLICE = 1 << 14  # samples of a stream quantized at a time: 256 KiB of stereo
+
+
+def _quantize_into(a: np.ndarray, out: np.ndarray) -> bool:
+    """out[...] = rint(a * 32768) as int16 if every sample of the float64 a
+    [n, nch] is int16-origin (a * 32768 integral, in [-32768, 32767]), in
+    slices that stay in cache; False at the first slice where one is not."""
+    tmp = np.empty((min(len(a), STAGE_SLICE), a.shape[1]))
+    rnd = np.empty_like(tmp)
+    for lo in range(0, len(a), STAGE_SLICE):
+        m = min(STAGE_SLICE, len(a) - lo)
+        x = np.multiply(a[lo:lo + m], 32768.0, out=tmp[:m])
+        r = np.rint(x, out=rnd[:m])
+        if (x != r).any() or r.min() < -32768.0 or r.max() > 32767.0:
+            return False
+        np.copyto(out[lo:lo + m], r, casting="unsafe")
+    return True
+
+
+def stage_int16(arrs, device="cuda"):
+    """Stage float64 encoder input streams [n_s, nch] as one int16 batch
+    [B, max n_s, nch] on `device` (rows past n_s hold whatever an earlier
+    call left: gather_rows trims them), or None where a sample of some stream
+    is not int16-origin. One host pass quantizes the streams into a staging
+    buffer, pinned on a card, that later calls reuse (grown when a batch
+    needs more), and one copy ships it. A call first waits for the previous
+    call's copy out of the buffer, so that shards on side streams in turn
+    never overwrite a copy in flight."""
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    B, nch = len(arrs), arrs[0].shape[1]
+    n_max = max(1, max(len(a) for a in arrs))
+    need = B * n_max * nch
+    with _STAGE_LOCK:
+        if _STAGE["copied"] is not None:
+            _STAGE["copied"].synchronize()
+            _STAGE["copied"] = None
+        buf = _STAGE["buf"]
+        if (buf is None or buf.numel() < need
+                or (on_card and not buf.is_pinned())):
+            buf = _STAGE["buf"] = torch.empty(need, dtype=torch.int16,
+                                              pin_memory=on_card)
+        host = buf[:need].view(B, n_max, nch)
+        h = host.numpy()
+        for s, a in enumerate(arrs):
+            if not _quantize_into(a, h[s, : len(a)]):
+                return None
+        if not on_card:
+            return host.clone()
+        out = host.to(dev, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        _STAGE["copied"] = ev
+        return out
+
+
 def gather_rows(chunk_i16: torch.Tensor, rows, skips, lens, T: int,
                 nch: int) -> torch.Tensor:
     """Device-resident encode input: pull trimmed, zero-padded, dequantized
@@ -156,9 +218,15 @@ def subblock_energy(pcm_bnt: torch.Tensor, align: int) -> torch.Tensor:
     block_type_sequence's reduction half, on the device (the decision half
     stays on the host: psymodel.block_types_from_subblock_energy). `align`
     applies align_to_mdct's delay. f32 [B, nch, T] (T % 64 == 0) ->
-    e f32 [B, T // 64]."""
-    x = pcm_bnt.mean(dim=1)                                      # [B, T]
+    e float64 [B, T // 64].
+
+    In float64, and so for int16-origin PCM (k/2^15) equal bit for bit to
+    the host's float64 energies: the channel mean needs 17 bits, the
+    high-pass 18, a square 36 and a sum of 64 squares 42, all under
+    float64's 53 in any order of summation."""
+    x = pcm_bnt.double().mean(dim=1)                             # [B, T]
     T = x.shape[1]
     x = torch.nn.functional.pad(x, (align, 0))[:, :T]
     hp = x - torch.cat([x[:, :1], x[:, :-1]], dim=1)
-    return (hp.reshape(x.shape[0], T // 64, 64) ** 2).sum(dim=2)
+    hp = hp.reshape(x.shape[0], T // 64, 64)
+    return (hp * hp).sum(dim=2)

@@ -290,9 +290,9 @@ def block_types_from_subblock_energy(e: np.ndarray,
                                      floor: float = 1e-6) -> np.ndarray:
     """block_type_sequence's decision half, from precomputed 64-sample
     sub-block energies e [G*9] (sum of squared high-pass samples). The
-    device-resident encode path computes e ON DEVICE (device.py
-    _subblock_energy_jit) and downloads only these tiny rows — the
-    label semantics live here, shared with the host-PCM path."""
+    device encode paths compute e ON DEVICE in float64 (device.py
+    subblock_energy) and download only these tiny rows — the label
+    semantics live here, shared with the host-PCM path."""
     G = len(e) // 9
     if G == 0:
         return np.zeros(0, np.int64)

@@ -5,7 +5,9 @@ at most 3 streams a call.
 Across packages (float32 searches that flip at quantization boundaries):
 every stream of encode_batch has the JAX package's number of frames and
 bytes, and decodes within 0.5 dB of its SNR and within 3 dB of encode_pcm's.
-Within the port, byte for byte: a rerun; int16 against float32 staging;
+Within the port, byte for byte: a rerun; int16 staging with labels from the
+device's float64 energies against float32 staging with host labels, and
+input that is not int16-origin against the same; a reused staging buffer;
 device emission on against off; any row-block size; encode(device_loops=True)
 against encode_batch; transcode from a DecodedBatch against encode_batch of
 the handle's PCM.
@@ -168,6 +170,87 @@ def test_encode_profile_and_iteration_histogram(pcms, monkeypatch, capsys):
     assert sum(int(h.sum()) for h in hist.values()) >= prof["total_rows"]
 
 
+# ---- int16 staging and labels from the device's float64 energies
+
+def transient_streams(nch):
+    """Int16-origin clicks and bursts at two unequal lengths: short blocks."""
+    sig = fixtures.transients(0.7, SR, nch)
+    out = [i16_origin(sig[:26000]), i16_origin(np.roll(sig, 9000, 0)[:17000])]
+    return [p[:, 0] for p in out] if nch == 1 else out
+
+
+def short_granules(mp3):
+    from mp3tpu_torch.pipeline import load_symbols
+    st, _info, _index = load_symbols(mp3)
+    return int((st.block_type == 2).sum())
+
+
+@pytest.fixture
+def spans(monkeypatch):
+    """Span recording on, TOTALS empty; yields TOTALS."""
+    from mp3tpu_torch.utils import profiling
+    monkeypatch.setenv("MP3TPU_SPANS", "1")
+    monkeypatch.setattr(profiling, "_ON", profiling._ON)
+    saved = dict(profiling.TOTALS)
+    profiling.TOTALS.clear()
+    yield profiling.TOTALS
+    profiling.TOTALS.clear()
+    profiling.TOTALS.update(saved)
+
+
+def f32_route(pcms, monkeypatch, **kw):
+    """encode_batch through the float32 staging and the float64 host labels."""
+    with monkeypatch.context() as m:
+        m.setattr(tdev, "FORCE_F32_STAGE", True)
+        return mp3tpu_torch.encode_batch(pcms, SR, bitrate=128, device="cpu",
+                                         **kw)
+
+
+@pytest.mark.parametrize("nch", [1, 2])
+def test_int16_route_equals_the_f32_route_on_transients(nch, monkeypatch,
+                                                        spans):
+    """Int16 staging with labels from the device's energies gives the bytes
+    of float32 staging with float64 host labels, short blocks included."""
+    pcms = transient_streams(nch)
+    got = mp3tpu_torch.encode_batch(pcms, SR, bitrate=128, device="cpu")
+    assert spans["mp3tpu.encode.labels/device"]["items"] == 2
+    assert got == f32_route(pcms, monkeypatch)
+    assert spans["mp3tpu.encode.labels/host"]["items"] == 2
+    assert all(short_granules(m) > 0 for m in got)
+
+
+@pytest.mark.parametrize("how", ["gain 0.37", "k/2^15 + 1e-12"])
+def test_input_not_int16_origin_takes_the_f32_route(how, monkeypatch, spans):
+    pcms = transient_streams(2)
+    pcms[1] = pcms[1] * 0.37 if how == "gain 0.37" else pcms[1] + 1e-12
+    got = mp3tpu_torch.encode_batch(pcms, SR, bitrate=128, device="cpu")
+    assert spans["mp3tpu.encode.labels/host"]["items"] == 2
+    assert "mp3tpu.encode.labels/device" not in spans
+    assert got == f32_route(pcms, monkeypatch)
+    assert short_granules(got[0]) > 0
+
+
+def test_the_reused_staging_buffer_gives_fresh_bytes(pcms, monkeypatch):
+    """A larger batch after a smaller, then a smaller again: each call's
+    bytes are those of a call on a fresh staging buffer, and the buffer
+    grows once and is then reused."""
+    calls = [[pcms[2][:9000]], [p[:22000] for p in pcms],
+             [pcms[1][:20000], pcms[0][:5000]]]
+    fresh = []
+    for c in calls:
+        with monkeypatch.context() as m:
+            m.setattr(tdev, "_STAGE", {"buf": None, "copied": None})
+            fresh.append(mp3tpu_torch.encode_batch(c, SR, bitrate=128,
+                                                   device="cpu"))
+    monkeypatch.setattr(tdev, "_STAGE", {"buf": None, "copied": None})
+    bufs = []
+    for c, want in zip(calls, fresh):
+        assert mp3tpu_torch.encode_batch(c, SR, bitrate=128,
+                                         device="cpu") == want
+        bufs.append(tdev._STAGE["buf"])
+    assert bufs[1] is bufs[2] and bufs[0] is not bufs[1]
+
+
 # ---- transcode: the DecodedBatch straight into the encoder
 
 @pytest.fixture(scope="module")
@@ -184,7 +267,7 @@ def host_pcms(handle):
 @pytest.mark.parametrize("short_blocks", [False, True])
 def test_transcode_equals_encode_of_the_handles_pcm(mp3s, short_blocks):
     """Byte for byte: the gather's dequantization is the int16 staging's,
-    and the labels from float32 sub-block energies are the host's."""
+    and the labels from float64 sub-block energies are the host's."""
     handle = mp3tpu_torch.decode_batch(mp3s, output="device", device="cpu")
     got = mp3tpu_torch.encode_batch(handle, bitrate=112,
                                     short_blocks=short_blocks)
@@ -195,6 +278,29 @@ def test_transcode_equals_encode_of_the_handles_pcm(mp3s, short_blocks):
         from mp3tpu_torch.pipeline import load_symbols
         st, _info, _index = load_symbols(got[1])
         assert (st.block_type == 2).any()    # the transients switched
+
+
+def test_transcode_labels_equal_the_host_labels_of_its_pcm(mp3s, monkeypatch,
+                                                          spans):
+    """The labels the transcode decides from the device's float64 energies
+    equal block_type_sequence of the handle's .numpy() PCM exactly."""
+    from mp3tpu_torch.encoder import batch
+    from mp3tpu_torch.encoder.psymodel import (align_to_mdct,
+                                               block_type_sequence)
+    handle = mp3tpu_torch.decode_batch(mp3s, output="device", device="cpu")
+    labels = []
+    decide = batch.block_types_from_subblock_energy
+    monkeypatch.setattr(batch, "block_types_from_subblock_energy",
+                        lambda e: labels.append(decide(e)) or labels[-1])
+    mp3tpu_torch.encode_batch(handle, bitrate=112)
+    assert spans["mp3tpu.encode.labels/device"]["items"] == len(mp3s)
+    assert len(labels) == len(mp3s)
+    for got, pcm in zip(labels, host_pcms(handle)):
+        padded = np.zeros((len(got) * 576, pcm.shape[1]))
+        padded[: len(pcm)] = pcm
+        assert np.array_equal(got, block_type_sequence(align_to_mdct(padded),
+                                                       SR))
+    assert any((g == 2).any() for g in labels)
 
 
 def test_transcode_mono_and_host_records(monkeypatch):

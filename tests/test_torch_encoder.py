@@ -263,7 +263,8 @@ def test_gather_rows_and_subblock_energy():
         assert np.array_equal(got[0, 0, :3000].numpy(),
                               chunk[2, 1105 + k, 0].astype(np.float32) / 32768.0)
         assert not got[0, :, 3000:].any()
-    # sub-block energies: float32 sums of 64 squares, summed in another order
+    # sub-block energies: against the JAX package's float32 sums of 64
+    # squares, summed in another order (the port's are float64, exact)
     e = tdev.subblock_energy(got, MDCT_ALIGN).numpy()
     je = np.asarray(jdev._subblock_energy_jit(MDCT_ALIGN)(jnp.asarray(got.numpy())))
     np.testing.assert_allclose(e, je, rtol=1e-5)
@@ -279,9 +280,18 @@ def test_stage_pcm_int16_origin():
     assert not staged and np.array_equal(dev.numpy(), pcm * np.float32(0.37))
 
 
+def host_subblock_energy(pcm: np.ndarray) -> np.ndarray:
+    """block_type_sequence's reduction in numpy float64 on the MDCT-aligned
+    copy of pcm [n, nch] (n % 576 == 0)."""
+    x = align_to_mdct(pcm).mean(axis=1)
+    hp = np.diff(x, prepend=x[:1])
+    return (hp.reshape(-1, 64) ** 2).sum(axis=1)
+
+
 def test_block_types_from_device_energies():
-    """The labels decided from the device's float32 sub-block energies equal
-    the host's float64 labels on the transient clip."""
+    """The device's float64 sub-block energies equal the host's float64
+    energies exactly on the transient clip, and so the labels decided from
+    them equal the host's labels."""
     sig = fixtures.transients(1.5, SR)
     i16 = np.round(sig * 32767).astype(np.int16)
     n = len(i16)
@@ -292,10 +302,47 @@ def test_block_types_from_device_energies():
     want = block_type_sequence(align_to_mdct(padded), SR)
     grab = tdev.gather_rows(torch.from_numpy(i16[None]), [0], [0], [n],
                             G * 576, 2)
-    e = tdev.subblock_energy(grab, MDCT_ALIGN).numpy().astype(np.float64)
+    e = tdev.subblock_energy(grab, MDCT_ALIGN).numpy()
+    assert e.dtype == np.float64
+    assert np.array_equal(e[0], host_subblock_energy(padded))
     got = block_types_from_subblock_energy(e[0, : G * 9])
     assert np.array_equal(got, want)
     assert (got == 2).any()
+
+
+@pytest.mark.parametrize("nch", [1, 2])
+def test_subblock_energy_is_exact_in_float64(nch):
+    """On int16 PCM with both extremes, full-scale steps between them
+    included, the device energies equal numpy's float64 energies bit for
+    bit (every partial sum is exact in float64)."""
+    rng = np.random.default_rng(11)
+    i16 = rng.integers(-32768, 32768, (2, 64 * 576, nch)).astype(np.int16)
+    i16[0, 1000:1200] = np.where(np.arange(200) % 2, 32767, -32768)[:, None]
+    i16[1, :64] = -32768
+    i16[1, 64:128] = 32767
+    pcm = torch.from_numpy(i16.astype(np.float32) / np.float32(32768.0))
+    e = tdev.subblock_energy(pcm.transpose(1, 2).contiguous(), MDCT_ALIGN)
+    assert e.dtype == torch.float64
+    for b in range(2):
+        want = host_subblock_energy(i16[b].astype(np.float64) / 32768.0)
+        assert np.array_equal(e[b].numpy(), want)
+
+
+def test_stage_int16_takes_only_int16_origin_input():
+    """stage_int16 ships k/2^15 input as k, over unequal lengths, in one
+    [B, max n, nch] int16 batch; anything else gives None."""
+    rng = np.random.default_rng(12)
+    ks = [rng.integers(-32768, 32768, (n, 2)).astype(np.int16)
+          for n in (70_000, 3, 0)]
+    ks[0][:2] = [[-32768, 32767], [32767, -32768]]
+    arrs = [k.astype(np.float64) / 32768.0 for k in ks]
+    got = tdev.stage_int16(arrs, "cpu")
+    assert got.dtype == torch.int16 and got.shape == (3, 70_000, 2)
+    for k, row in zip(ks, got.numpy()):
+        assert np.array_equal(row[: len(k)], k)
+    for bad in (arrs[0] * 0.37, arrs[0] + 1e-12, np.ones((5, 2)),
+                np.full((5, 2), np.nan), np.full((5, 2), -np.inf)):
+        assert tdev.stage_int16([arrs[1], bad], "cpu") is None
 
 
 # ---- transform and psymodel: close

@@ -282,12 +282,17 @@ def test_encode_and_transcode_phases_share_a_request(spans_on, small_chunks):
     mp3s = mp3tpu_torch.encode_batch(short_pcms(), SR, device="cpu")
     [enc] = spans("mp3tpu.encode_batch")
     phases = [s for s in spans() if s["name"].startswith("mp3tpu.encode.")
-              and s["name"] != "mp3tpu.encode.bisect"]
+              and s["name"] not in ("mp3tpu.encode.bisect",
+                                    "mp3tpu.encode.labels")]
     assert {s["name"] for s in phases} >= {
         "mp3tpu.encode." + p for p in ("host_prep", "stage", "transform_psy",
                                        "passA", "passB", "emit", "mux")}
     assert all(s["request"] == enc["request"] and s["parent"] == enc["id"]
                for s in phases)
+    # the block-type labels are a span inside the staging
+    [stage] = spans("mp3tpu.encode.stage")
+    [labels] = spans("mp3tpu.encode.labels")
+    assert labels["parent"] == stage["id"] and labels["outcome"] == "device"
     # the rate loops' bisections are spans inside the passes
     loops = {s["id"] for s in phases if s["name"] in ("mp3tpu.encode.passA",
                                                       "mp3tpu.encode.passB")}
@@ -309,6 +314,8 @@ def test_encode_and_transcode_phases_share_a_request(spans_on, small_chunks):
         if s["name"] == "mp3tpu.encode.bisect":
             assert tree[s["parent"]]["name"] in ("mp3tpu.encode.passA",
                                                  "mp3tpu.encode.passB")
+        elif s["name"] == "mp3tpu.encode.labels":
+            assert tree[s["parent"]]["name"] == "mp3tpu.encode.stage"
         elif s["name"].startswith("mp3tpu.encode."):
             assert s["parent"] == enc["id"]
         elif s["name"] in ("mp3tpu.scan", "mp3tpu.unpack"):
