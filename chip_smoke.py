@@ -6,8 +6,8 @@
 Phases, each printing its numbers and its seconds on lines of its own; any
 failure raises and the script exits non-zero:
   1. environment: torch and CUDA versions, the card's name and power limit;
-  2. build: the port's C++ host library (csrc/unpack.cpp, encode_rows.cpp
-     and mux_stream.cpp, g++), the unpacker's section profiler
+  2. build: the port's C++ host library (csrc/unpack.cpp and
+     mux_stream.cpp, g++), the unpacker's section profiler
      (csrc/prof_main.cpp, g++, for the tools phase) and the CUDA kernels
      (csrc/fused_z.cu, csrc/synth.cu, csrc/huffman_dfa.cu and
      csrc/rate_bisect.cu, one nvcc each),
@@ -97,8 +97,9 @@ failure raises and the script exits non-zero:
      underrun, no decay, host RSS and device memory bounded after the
      first wave; fused_z and synth each launched once a step;
  11. encode: on the card, with no fallback: the bit count against vcount and
-     the device emitter against the C++ row emitter on CUDA tensors (random
-     rows of every layout and rows the loops produced); encode_batch of 64,
+     the device emitter against encode_granule, the Python reference, on
+     CUDA tensors (random rows of every layout and a fixed sample of the
+     rows the loops produced); encode_batch of 64,
      16 and 1 streams x 10 s of int16-origin PCM (the port's decode of the
      clips, scaled per stream) at 128 kbps with noise shaping on: every
      stream parses, decodes to its input's length, SNR over its floor,
@@ -1245,24 +1246,61 @@ def quant_rows(rng, n: int) -> np.ndarray:
     return rows
 
 
-def encoder_exact_tier(card: str) -> None:
+# rows of each loop held to encode_granule, a fixed seeded sample of the
+# loop's 2,048 (the Python reference takes about 0.5 ms a row)
+LOOP_SAMPLE = 512
+
+
+def granule_refs(ix, bt: int, tsel, c1, gg=None, lsf=None, ssf=None,
+                 sbg=None):
+    """huffcode.encode_granule, the Python reference, row by row: the byte
+    rows [n, 520], zero-padded as the device emitter's, and meta [n, 5]
+    (part2_3_length, big_values, scalefac_compress, region0_count,
+    region1_count). tsel holds table ids; lsf / ssf (and sbg) the
+    scalefactors of rows coded with them."""
+    from mp3tpu_torch.encoder import emit_device
+    from mp3tpu_torch.encoder.huffcode import encode_granule
+    n = len(ix)
+    rows = np.zeros((n, emit_device.CAP_WORDS * 4), np.uint8)
+    meta = np.zeros((n, 5), np.int64)
+    for i in range(n):
+        kw = {}
+        if lsf is not None:
+            kw["long_sf"] = lsf[i]
+        if ssf is not None:
+            kw["short_sf"] = ssf[i]
+        if sbg is not None:
+            kw["subblock_gain"] = tuple(int(x) for x in sbg[i])
+        g = encode_granule(np.asarray(ix[i], np.int32),
+                           210 if gg is None else int(gg[i]), SR, bt,
+                           tsel=tuple(int(t) for t in tsel[i]),
+                           c1table=int(c1[i]), **kw)
+        b = np.packbits(np.asarray(g.bits.bits, np.uint8))
+        rows[i, : len(b)] = b
+        meta[i] = (g.part2_3_length, g.big_values, g.scalefac_compress,
+                   g.region0_count, g.region1_count)
+    return rows, meta
+
+
+def encoder_exact_tier(card: str, device: str = "cuda") -> None:
     """On CUDA tensors, integer for integer: the bit count against vcount,
-    and the device emitter against the C++ row emitter, on random rows of
-    every layout and on rows the loops produced."""
-    from mp3tpu_torch.encoder import emit_device, native_emit, vloop
+    and the device emitter against encode_granule, the Python reference, on
+    random rows of every layout and on rows the loops produced."""
+    from mp3tpu_torch.encoder import emit_device, vloop
     from mp3tpu_torch.encoder import vloop_device as vd
     from mp3tpu_torch.encoder.tables import encoder_tables
     from mp3tpu_torch.encoder.vcount import count_bits_rows_full
+    t0 = time.perf_counter()
     rng = np.random.default_rng(11)
-    t = encoder_tables(SR, "cuda")
+    t = encoder_tables(SR, device)
     ix = quant_rows(rng, 640)
     # rows that fit part2_3_length's 12 bits under every layout, with the
     # scalefactors' bits: the others cannot be coded at all
     fits = np.all([count_bits_rows_full(ix, SR, bt)[0] <= 3900
                    for bt in (0, 1, 2)], axis=0)
     ix = ix[fits][:512]
-    ix_dev = torch.from_numpy(ix).cuda()
-    n_checked = 0
+    ix_dev = torch.from_numpy(ix).to(device)
+    n_random = n_loop = 0
     for bt, layout in ((0, "long"), (1, "switched"), (2, "short")):
         ref, sel = count_bits_rows_full(ix, SR, bt)
         bits, selr, _bv, _k, c1 = vd._count_rows(t, ix_dev, bt != 0)
@@ -1281,33 +1319,33 @@ def encoder_exact_tier(card: str) -> None:
         sf[::7] = 0
         for use_sf in (False, True):
             words, meta = emit_device.emit_rows_device(
-                ix_dev, torch.from_numpy(sf).cuda(), selr, c1, SR, layout, use_sf)
+                ix_dev, torch.from_numpy(sf).to(device), selr, c1, SR, layout,
+                use_sf)
             got = emit_device.words_to_bytes(words).cpu().numpy()
-            lsf = sf if layout != "short" else np.zeros((n, 21), np.int64)
-            ssf = sf if layout == "short" else np.zeros((n, 3, 12), np.int64)
-            packed = native_emit.encode_rows_packed(
-                ix, np.full(n, bt), np.full(n, use_sf), lsf, ssf, tsel,
-                sel["c1table"], SR)
-            if packed is None:
-                raise AssertionError("the C++ row emitter is unavailable")
-            if not (np.array_equal(got, packed[0]) and np.array_equal(
-                    meta.cpu().numpy(), packed[1][:, :5])):
-                raise AssertionError(f"device emitter differs from the C++ "
-                                     f"emitter ({layout}, use_sf={use_sf})")
-            n_checked += n
-    # rows the loops produced: count == emit on the card
+            kw = {}
+            if use_sf:
+                kw = {"ssf" if layout == "short" else "lsf": sf}
+            want, wmeta = granule_refs(ix, bt, tsel, sel["c1table"], **kw)
+            if not (np.array_equal(got, want)
+                    and np.array_equal(meta.cpu().numpy(), wmeta)):
+                raise AssertionError(f"device emitter differs from "
+                                     f"encode_granule ({layout}, "
+                                     f"use_sf={use_sf})")
+            n_random += n
+    # rows the loops produced: count == emit on the card for every row, and
+    # a fixed sample of each loop's rows against encode_granule
     xr = (rng.standard_normal((2048, 576)) * np.exp(-np.arange(576) / 120)[None]
           * rng.uniform(0.01, 2.0, (2048, 1))).astype(np.float32)
     en = (xr.astype(np.float64) ** 2).sum(1) / 576
     budgets = rng.integers(500, 3000, 2048)
-    xr_dev = torch.from_numpy(xr).cuda()
+    xr_dev = torch.from_numpy(xr).to(device)
     idx = np.arange(2048)
     for kind, layout, shape in (("long", "long", (21,)), ("long", "switched", (21,)),
                                 ("short", "short", (3, 12)), ("rate", "long", None)):
         bt = {"long": 0, "switched": 1, "short": 2}[layout]
         if shape is not None:
             xmin = torch.from_numpy((en.reshape((-1,) + (1,) * len(shape)) * rng.uniform(
-                0.002, 0.5, (2048,) + shape)).astype(np.float32)).cuda()
+                0.002, 0.5, (2048,) + shape)).astype(np.float32)).to(device)
         if kind == "long":
             pend = vd.outer_rows_gathered_pending(xr_dev, xmin, idx, budgets, SR,
                                                   block_type=bt)
@@ -1315,7 +1353,7 @@ def encoder_exact_tier(card: str) -> None:
             pend = vd.outer_rows_short_gathered_pending(xr_dev, xmin, idx, budgets, SR)
         else:
             pend = vd.rate_rows_gathered_pending(xr_dev, idx, budgets, SR, bt)
-        by, m5, _gg, tcols, c1, hb, _sbg = pend.emit_and_take(layout, kind != "rate", idx)
+        by, m5, gg, tcols, c1, hb, sbg = pend.emit_and_take(layout, kind != "rate", idx)
         raw = pend.fetch_rows()
         sfc = m5[:, 2].astype(np.int64)
         sfb = (18 * (vloop._SLEN1[sfc] + vloop._SLEN2[sfc]) if layout == "short"
@@ -1323,20 +1361,24 @@ def encoder_exact_tier(card: str) -> None:
         if not np.array_equal(m5[:, 0], hb + sfb) or (m5[:, 0] > budgets).any():
             raise AssertionError(f"{kind}/{layout}: emitted bits differ from the "
                                  "count or exceed the budget")
-        n = len(idx)
-        lsf = raw["sf"] if kind == "long" else np.zeros((n, 21), np.int64)
-        ssf = raw["sf"] if kind == "short" else np.zeros((n, 3, 12), np.int64)
-        packed = native_emit.encode_rows_packed(
-            raw["ix"], np.full(n, bt), np.full(n, kind != "rate"), lsf, ssf,
-            vd._TID[tcols], c1, SR)
-        if not (np.array_equal(by, packed[0]) and np.array_equal(m5, packed[1][:, :5])):
+        pick = np.sort(rng.choice(len(idx), LOOP_SAMPLE, replace=False))
+        kw = {}
+        if kind == "long":
+            kw = dict(lsf=raw["sf"][pick])
+        elif kind == "short":
+            kw = dict(ssf=raw["sf"][pick], sbg=sbg[pick])
+        want, wmeta = granule_refs(raw["ix"][pick], bt, vd._TID[tcols[pick]],
+                                   c1[pick], gg=gg[pick], **kw)
+        if not (np.array_equal(by[pick], want) and np.array_equal(m5[pick], wmeta)):
             raise AssertionError(f"{kind}/{layout}: loop rows emit differently "
-                                 "on the device and in C++")
-        n_checked += n
+                                 "on the device and in encode_granule")
+        n_loop += LOOP_SAMPLE
     log(f"encode exact tier: _count_rows == vcount on {len(ix)} rows x 3 layouts; "
-        f"device emitter == C++ emitter on {n_checked} rows (random rows of "
-        f"every layout with and without scalefactors; rows of the long, "
-        f"switched, short and rate loops, bits <= budget) ({card})")
+        f"device emitter == encode_granule on {n_random + n_loop} rows (random "
+        f"rows of every layout with and without scalefactors: {n_random}; "
+        f"{LOOP_SAMPLE} rows each of the long, switched, short and rate loops, "
+        f"all 2048 of each with bits == count <= budget) in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
 
 
 def stream_snr_db(mp3s: list, refs: list) -> list:
@@ -1373,7 +1415,7 @@ ENCODE_SNR_FLOOR = {"sweep": 39.5, "transients": 7.0, "tonal": 41.0}
 def phase_encode(clips: dict, track: bytes, batch: list, fast: list,
                  card: str) -> dict:
     """The encoder on the card (none of its failures is caught: no CPU
-    fallback, no Python fallback for the C++ emitter and mux). Returns the
+    fallback, no Python fallback for the C++ mux). Returns the
     kernels' launches in the transcode run."""
     import mp3tpu_torch
     from mp3tpu_torch.container import frames as fr

@@ -1,9 +1,9 @@
 """ctypes loader for the C++ host library: the fast-path unpacker (SURVEY.md
-B2/B4), the encoder's row emitter and the stream mux (E5/E6).
+B2/B4) and the encoder's stream mux (E6).
 
 Counterpart of mp3tpu.bitstream.native, with the same functions and
-routing. It builds the port's copies, csrc/unpack.cpp, csrc/encode_rows.cpp
-and csrc/mux_stream.cpp with csrc/spec_tables.h, into one library with g++
+routing. It builds the port's copies, csrc/unpack.cpp and
+csrc/mux_stream.cpp with csrc/spec_tables.h, into one library with g++
 at first use (kernels/build.py: the Makefile's flags less -flto, into
 build/mp3tpu_torch/, under the build lock). MP3TPU_NO_NATIVE (or
 decode.use_native=False) leaves the pure-Python paths (unpack.py,
@@ -51,10 +51,6 @@ def _load():
         [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32), ctypes.c_int32] +
         [ctypes.c_void_p] * 8 + [ctypes.c_int32] * 3 +
         [ctypes.c_void_p] * 2 + [ctypes.c_int32])
-    lib.mp3tpu_encode_rows.restype = ctypes.c_int
-    lib.mp3tpu_encode_rows.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int32] * 2 +
-        [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p])
     lib.mp3tpu_mux_stream.restype = ctypes.c_int64
     lib.mp3tpu_mux_stream.argtypes = (
         [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] +

@@ -59,11 +59,6 @@ class EncodeConfig:
     #                                path (encoder.encode_pcm device_loops;
     #                                auto = accelerator present and >=128
     #                                granules)
-    device_emit: bool = True       # emit part2+part3 bitstreams on device
-    #                                (encoder/emit_device.py): the packed
-    #                                bytes download instead of the spectra
-    #                                (byte-identical; the reservoir path
-    #                                only)
 
 
 @dataclass(frozen=True)

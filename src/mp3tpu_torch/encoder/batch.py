@@ -23,9 +23,9 @@ the host sees only small control tensors plus the coded bytes:
   reservoir control    host per stream (two-pass deterministic walk,
                        same policy as encode_pcm: SURVEY.md §7.5-5
                        keeps loop CONTROL on host)
-  E5/E6 emission       device emitter (emit_device) or the C++ row
-                       emitter (bit for bit the Python encode_granule),
-                       then the packed mux (mux_packed)
+  E5/E6 emission       device emitter (emit_device, bit for bit the
+                       Python encode_granule): only the packed bytes come
+                       down; then the packed mux (mux_packed)
 
 The single-stream encode_pcm (numpy lockstep, f64 scalar-exact) is the
 reference; encode_batch's device search differs from it only by half-step
@@ -45,7 +45,7 @@ import torch
 
 from ..container.frames import BITRATES_V1_L3
 from ..utils.profiling import annotate, request
-from . import vloop, vloop_device
+from . import emit_device, vloop, vloop_device
 from .huffcode import encode_granule
 from .mux import FrameSizer, ReservoirMux, build_xing_frame, \
     frame_capacity_bits
@@ -58,6 +58,17 @@ S2 = 1.0 / np.sqrt(2.0)
 
 # last MP3TPU_ENCODE_PROFILE=1 phase walls
 LAST_PROFILE: dict = {}
+# Pass B upgrades only frames whose budget bump is MATERIAL (> this many bits
+# per granule-channel). Pass A's reservoir walk is a lower bound that loses a
+# few bits a frame to worst-case byte-alignment pessimism, so with a margin
+# of 0 nearly every frame "upgrades" by a few bits and gets re-quantized on
+# the device for no audible gain. Kept frames stay coded at their pass-A
+# budget (always conformant: coding under budget is legal) and their EXACT
+# coded size feeds the walk, which is what actually grows the reservoir for
+# the loud frames that need real upgrades. Genuine reclaims (quiet stretch ->
+# transient) are hundreds of bits and sail over the margin; at 128 kbps
+# stereo a skipped 96-bit bump is about 2% of a frame's budget.
+UPGRADE_MARGIN = 96
 
 
 class _Phases:
@@ -171,8 +182,9 @@ def encode_batch(pcms, sample_rate: int | None = None,
 
     Unset parameters fall back to the active EncodeConfig (SURVEY.md
     §5.6), mirroring encode_pcm. device ("cuda" unless given) is where the
-    device stages run; on a card the C++ emitter and mux are required
-    (no Python fallback), as the C++ unpacker is for the decode.
+    device stages run. Every row is emitted on the device, with the
+    reservoir on or off (emit_device: one emitter); on a card the C++ mux is
+    required (no Python fallback), as the C++ unpacker is for the decode.
 
     mesh (a parallel.StreamMesh) splits the streams by its stream_sharding:
     each shard's streams are encoded on that shard's device (on a card, on a
@@ -255,8 +267,7 @@ def encode_batch(pcms, sample_rate: int | None = None,
             try:
                 return _encode_batch(part, part_recs, sample_rate, bitrate,
                                      gapless_tag, short_blocks, joint_stereo,
-                                     noise_shaping, reservoir, dev,
-                                     bool(ecfg.device_emit), phases)
+                                     noise_shaping, reservoir, dev, phases)
             finally:
                 phases.close()
 
@@ -302,7 +313,7 @@ def _check_mesh_device(mesh, device) -> None:
 
 
 def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
-                  joint_stereo, noise_shaping, reservoir, device, cfg_emit,
+                  joint_stereo, noise_shaping, reservoir, device,
                   phases) -> list[bytes]:
     """encode_batch on resolved arguments: float64 arrays [n, nch] (recs
     None), or the DecodedBatch's device records."""
@@ -503,18 +514,14 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
         feed_s.append(feed_f)
         granted_s.append(granted)
 
-    # ---- device quantization --------------------------------------------
-    # device emission (encoder/emit_device.py): the deferred/reservoir
-    # path downloads packed bitstream bytes instead of spectra
+    # ---- device quantization and emission -------------------------------
+    # every row is emitted on the device (encoder/emit_device.py): the
+    # packed part2+part3 bytes come to the host, not the spectra
     phases.start("passA")
-    device_emit = (reservoir and cfg_emit
-                   and os.environ.get("MP3TPU_DEVICE_EMIT", "1") != "0")
-    from . import native_emit
-    CAP = native_emit._CAP
+    CAP = emit_device.CAP_WORDS * 4
     bits_bytes = np.zeros((n_gc, CAP), np.uint8)
-    meta = np.zeros((n_gc, 6), np.int32)
-    emitted = np.zeros(n_gc, bool)
-    ix_a = np.zeros((n_gc, 576), np.int16)
+    meta = np.zeros((n_gc, 5), np.int32)
+    p23 = np.zeros(n_gc, np.int64)
     gg_a = np.full(n_gc, 210, np.int64)
     lsf_a = np.zeros((n_gc, 21), np.int64)
     ssf_a = np.zeros((n_gc, 3, 12), np.int64)
@@ -523,26 +530,22 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
     tsel_a = np.zeros((n_gc, 3), np.int64)
     c1t_a = np.zeros(n_gc, np.int64)
 
-    def quantize_rows_dev(idx, budgets, light):
+    def quantize_rows_dev(idx, budgets, plan=False):
         """Run the device loops for the gc indices idx (0..n_gc) at the
         budgets aligned with them, one group per kind of row; the results
         stay on the device. Returns pend_list, whose entries (gc_ids, kind,
         layout, _Pending) go to finalize_pending once the caller knows
         which rows it keeps: most pass-A rows of an upgraded frame are
-        re-quantized by pass B, so their spectra never need to leave the
-        device.
+        re-quantized by pass B, so they are never emitted.
 
-        light=True also downloads what the pass-B planning consumes (bits
-        and scalefactors) and returns ((bits, lsf, ssf), pend_list)."""
+        plan=True also downloads what the pass-B planning consumes (bits
+        and scalefactors) into hbits_a, lsf_a and ssf_a."""
         b = budgets.astype(np.int64)
         btr = bt_all[idx]
         shaped_l = (btr != 2) & noise_shaping
         shaped_s = (btr == 2) & noise_shaping
         plain = ~shaped_l & ~shaped_s
         pend_list = []
-        o_lsf = np.zeros((len(idx), 21), np.int64)
-        o_ssf = np.zeros((len(idx), 3, 12), np.int64)
-        o_bits = np.zeros(len(idx), np.int64)
         # long-LAYOUT rows: 0 plus start/stop 1/3 (long spectrum + long
         # sfb shaping; block_type switches the region split)
         vd = vloop_device
@@ -550,95 +553,69 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
             sel = np.nonzero(shaped_l & (btr == bt))[0]
             if not len(sel):
                 continue
-            args = (rows_dev, xminl_dev, vid[idx[sel]], b[sel], sample_rate)
-            if light:
-                (o_lsf[sel], o_bits[sel]), pend = vd.outer_rows_gathered_light(
-                    *args, block_type=int(bt))
-            else:
-                pend = vd.outer_rows_gathered_pending(*args, block_type=int(bt))
+            pend = vd.outer_rows_gathered_pending(
+                rows_dev, xminl_dev, vid[idx[sel]], b[sel], sample_rate,
+                block_type=int(bt))
+            if plan:
+                lsf_a[idx[sel]], hbits_a[idx[sel]] = pend.take("sf", "bits")
             pend_list.append((idx[sel], "long",
                               "long" if bt == 0 else "switched", pend))
         if shaped_s.any():
             sel = np.nonzero(shaped_s)[0]
-            args = (rows_dev, xmins_dev, vid[idx[sel]], b[sel], sample_rate)
-            if light:
-                (o_ssf[sel], o_bits[sel]), pend = \
-                    vd.outer_rows_short_gathered_light(*args)
-            else:
-                pend = vd.outer_rows_short_gathered_pending(*args)
+            pend = vd.outer_rows_short_gathered_pending(
+                rows_dev, xmins_dev, vid[idx[sel]], b[sel], sample_rate)
+            if plan:
+                ssf_a[idx[sel]], hbits_a[idx[sel]] = pend.take("sf", "bits")
             pend_list.append((idx[sel], "short", "short", pend))
         if plain.any():
             for bt in np.unique(btr[plain]):
                 sel = np.nonzero(plain & (btr == bt))[0]
-                args = (rows_dev, vid[idx[sel]], b[sel], sample_rate, int(bt))
-                if light:
-                    (o_bits[sel],), pend = vd.rate_rows_gathered_light(*args)
-                else:
-                    pend = vd.rate_rows_gathered_pending(*args)
+                pend = vd.rate_rows_gathered_pending(
+                    rows_dev, vid[idx[sel]], b[sel], sample_rate, int(bt))
+                if plan:
+                    (hbits_a[idx[sel]],) = pend.take("bits")
                 lay = ("long" if bt == 0
                        else "short" if bt == 2 else "switched")
                 pend_list.append((idx[sel], "rate", lay, pend))
-        if light:
-            return (o_bits, o_lsf, o_ssf), pend_list
         return pend_list
 
     def finalize_pending(pend_list, keep_mask, verify_p23=False):
-        """Download the results of the rows keep_mask selects. Entries
-        carry the GLOBAL gc ids of their rows.
-
-        With device_emit on, the packed part2+part3 BYTES download
-        instead of the spectra (emit_device via _Pending.emit_and_take);
-        bits_bytes/meta/p23 are written directly and the host emitter is
-        bypassed for these rows. verify_p23 pins the count==emit contract
-        against the host-side pass-A predictions."""
+        """Emit the rows keep_mask selects on the device and download their
+        packed part2+part3 BYTES and side-info fields
+        (_Pending.emit_and_take) into bits_bytes, meta, p23 and the side-info
+        arrays. Entries carry the GLOBAL gc ids of their rows. verify_p23
+        pins the count==emit contract against the host-side pass-A
+        predictions."""
         for gids, kind, layout, pend in pend_list:
             loc = np.nonzero(keep_mask[gids])[0]
             if not len(loc):
                 continue
             tgt = gids[loc]
-            if device_emit:
-                vloop_device.take_iter_stats(pend, layout)  # telemetry
-                by, m5, gg, tcols, c1, hb, sbg = pend.emit_and_take(
-                    layout, kind != "rate", loc)
-                bits_bytes[tgt] = by
-                meta[tgt, :5] = m5
-                gg_a[tgt] = gg
-                tsel_a[tgt] = vloop_device._TID[tcols.astype(np.int64)]
-                c1t_a[tgt] = c1
-                hbits_a[tgt] = hb
-                if sbg is not None:
-                    sbg_a[tgt] = sbg
-                # count == emit, device-to-device: the emitter's bit
-                # total must equal the count's huffman bits plus the
-                # scalefactor side bits its sfc implies
-                sfc = m5[:, 2].astype(np.int64)
-                if layout == "short":
-                    sfb = 18 * (vloop._SLEN1[sfc] + vloop._SLEN2[sfc])
-                else:
-                    sfb = 11 * vloop._SLEN1[sfc] + 10 * vloop._SLEN2[sfc]
-                assert np.array_equal(m5[:, 0].astype(np.int64),
-                                      hb.astype(np.int64) + sfb), \
-                    "device emitter/count drift"
-                if verify_p23:  # vs the host pass-A prediction
-                    assert np.array_equal(m5[:, 0].astype(np.int64),
-                                          p23[tgt]), "emitter/p23 drift"
-                p23[tgt] = m5[:, 0]
-                emitted[tgt] = True
-                continue
-            raw = pend.fetch_rows(loc)
-            if kind == "long":
-                gg, sf, _has, ix, bits, ts, c1 = vloop_device.post_long(
-                    raw, label=layout)
-                ix_a[tgt], gg_a[tgt], lsf_a[tgt] = ix, gg, sf
-            elif kind == "short":
-                gg, sf, sbg, _has, ix, bits, ts, c1 = \
-                    vloop_device.post_short(raw)
-                ix_a[tgt], gg_a[tgt] = ix, gg
-                ssf_a[tgt], sbg_a[tgt] = sf, sbg
+            vloop_device.take_iter_stats(pend, layout)  # telemetry
+            by, m5, gg, tcols, c1, hb, sbg = pend.emit_and_take(
+                layout, kind != "rate", loc)
+            bits_bytes[tgt] = by
+            meta[tgt] = m5
+            gg_a[tgt] = gg
+            tsel_a[tgt] = vloop_device._TID[tcols.astype(np.int64)]
+            c1t_a[tgt] = c1
+            if sbg is not None:
+                sbg_a[tgt] = sbg
+            # count == emit, device-to-device: the emitter's bit total must
+            # equal the count's huffman bits plus the scalefactor side bits
+            # its sfc implies
+            sfc = m5[:, 2].astype(np.int64)
+            if layout == "short":
+                sfb = 18 * (vloop._SLEN1[sfc] + vloop._SLEN2[sfc])
             else:
-                gg, _has, ix, bits, ts, c1 = vloop_device.post_rate(raw)
-                ix_a[tgt], gg_a[tgt] = ix, gg
-            hbits_a[tgt], tsel_a[tgt], c1t_a[tgt] = bits, ts, c1
+                sfb = 11 * vloop._SLEN1[sfc] + 10 * vloop._SLEN2[sfc]
+            assert np.array_equal(m5[:, 0].astype(np.int64),
+                                  hb.astype(np.int64) + sfb), \
+                "device emitter/count drift"
+            if verify_p23:  # vs the host pass-A prediction
+                assert np.array_equal(m5[:, 0].astype(np.int64),
+                                      p23[tgt]), "emitter/p23 drift"
+            p23[tgt] = m5[:, 0]
 
     def p23_of(idx):
         """part2_3_length = exact huffman bits + scalefactor side bits."""
@@ -658,34 +635,18 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
     idx_all = np.arange(n_gc)
     budgets_a = np.concatenate([np.repeat(granted_s[s], 2 * nch)
                                 for s in range(B)])
+    # with the reservoir, pass A downloads only what the upgrade walk
+    # consumes (bits and scalefactors); the spectra stay on the device until
+    # it is known which rows pass B re-quantizes
+    pend_a = quantize_rows_dev(idx_all, budgets_a, plan=reservoir)
     if reservoir:
-        # pass A downloads only what the upgrade walk consumes (bits and
-        # scalefactors); the spectra stay on the device until it is known
-        # which rows pass B re-quantizes
-        (hbits_a[:], lsf_a[:], ssf_a[:]), pend_a = \
-            quantize_rows_dev(idx_all, budgets_a, light=True)
-    else:
-        pend_a = quantize_rows_dev(idx_all, budgets_a, light=False)
-        finalize_pending(pend_a, np.ones(n_gc, bool))
-        pend_a = None
-    p23 = p23_of(idx_all)
+        p23 = p23_of(idx_all)
 
     # ---- pass-B upgrade walk per stream, one batched re-quantize --------
     phases.start("passB")
+    keep_mask = np.ones(n_gc, bool)
+    pend_b = None
     if reservoir:
-        # Upgrade only frames whose budget bump is MATERIAL (> margin
-        # bits per granule-channel). Pass A's reservoir walk is a lower
-        # bound that loses a few bits a frame to worst-case byte-alignment
-        # pessimism, so with margin=0 nearly every frame "upgrades" by a
-        # few bits and gets re-quantized on the device for no audible gain.
-        # Kept frames stay coded at their pass-A budget (always conformant:
-        # coding under budget is legal) and their EXACT coded size feeds
-        # the walk, which is what actually grows the reservoir for the loud
-        # frames that need real upgrades. Genuine reclaims (quiet stretch
-        # -> transient) are hundreds of bits and sail over the margin; at
-        # 128 kbps stereo a skipped 96-bit bump is about 2% of a frame's
-        # budget.
-        margin = int(os.environ.get("MP3TPU_UPGRADE_MARGIN", "96"))
         _deltas = [] if _prof else None
         upg_idx_parts, upg_bud_parts = [], []
         for s in range(B):
@@ -707,7 +668,7 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
                 want = int(min(want, 3900))
                 if _deltas is not None and want > granted[f]:
                     _deltas.append(want - granted[f])
-                if want > granted[f] + margin:
+                if want > granted[f] + UPGRADE_MARGIN:
                     final[f] = want
                     used = 2 * nch * want
                 else:
@@ -725,7 +686,6 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
                 upg_idx_parts.append(gidx)
                 upg_bud_parts.append(np.repeat(final[upg_f], 2 * nch))
                 granted_s[s] = final
-        keep_mask = np.ones(n_gc, bool)
         if _deltas is not None and _deltas:
             d = np.sort(np.asarray(_deltas))
             _ph['upg_want_gt_granted'] = len(d)
@@ -738,52 +698,13 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
             if _prof:
                 _ph['upgraded_rows'] = len(uidx)
                 _ph['total_rows'] = n_gc
-        pend_b = None
-        if upg_idx_parts:
-            pend_b = quantize_rows_dev(uidx, np.concatenate(upg_bud_parts),
-                                       light=False)
-        phases.start("emit")
-        if pend_b is not None:
-            finalize_pending(pend_a, keep_mask, verify_p23=device_emit)
-            finalize_pending(pend_b, ~keep_mask)
-            if not device_emit:
-                p23[uidx] = p23_of(uidx)
-        else:
-            finalize_pending(pend_a, keep_mask, verify_p23=device_emit)
-        pend_a = pend_b = None
+            pend_b = quantize_rows_dev(uidx, np.concatenate(upg_bud_parts))
 
-    # ---- emission: host path for rows the device didn't emit ------------
-    # (all of them with device_emit off / the eager no-reservoir path;
-    # none with it on: the deferred finalize wrote bits_bytes directly)
     phases.start("emit")
-    todo = np.nonzero(~emitted)[0]
-    use_sf = np.full(n_gc, bool(noise_shaping))
-    packed = None
-    if len(todo):
-        packed = native_emit.encode_rows_packed(
-            ix_a[todo], bt_all[todo], use_sf[todo], lsf_a[todo], ssf_a[todo],
-            tsel_a[todo], c1t_a[todo], sample_rate)
-        if packed is None and on_card:
-            raise RuntimeError("the C++ row emitter is unavailable or "
-                               "overflowed (MP3TPU_NO_NATIVE set, or no g++)")
-    if packed is not None:
-        bits_bytes[todo], meta[todo] = packed
-    else:
-        for i in todo:
-            b = int(bt_all[i])
-            kw = {}
-            if use_sf[i] and b != 2:
-                kw = dict(long_sf=lsf_a[i])
-            if use_sf[i] and b == 2:
-                kw = dict(short_sf=ssf_a[i],
-                          subblock_gain=tuple(int(x) for x in sbg_a[i]))
-            g = encode_granule(np.asarray(ix_a[i], np.int32), int(gg_a[i]),
-                               sample_rate, b, tsel=tsel_a[i],
-                               c1table=int(c1t_a[i]), **kw)
-            row = np.packbits(np.asarray(g.bits.bits, np.uint8))
-            bits_bytes[i, : len(row)] = row
-            meta[i] = (g.part2_3_length, g.big_values, g.scalefac_compress,
-                       g.region0_count, g.region1_count, 0)
+    finalize_pending(pend_a, keep_mask, verify_p23=reservoir)
+    if pend_b is not None:
+        finalize_pending(pend_b, ~keep_mask)
+    pend_a = pend_b = None
     # emission must agree with the predicted exact counts: this is the
     # count == emit contract the reservoir replay depends on
     assert np.array_equal(meta[:, 0].astype(np.int64), p23), \
@@ -827,7 +748,7 @@ def _encode_batch(arrs, recs, sample_rate, bitrate, gapless_tag, short_blocks,
                         bits_bytes[i, : len(row)] = row
                         meta[i] = (g.part2_3_length, g.big_values,
                                    g.scalefac_compress, g.region0_count,
-                                   g.region1_count, 0)
+                                   g.region1_count)
                         tsel_a[i] = g.table_select
                         c1t_a[i] = g.count1table_select
                         gg_a[i] = g.global_gain

@@ -2,8 +2,8 @@
 
 Counterpart of mp3tpu.encoder.emit_device. Produces the packed part2+part3
 bitstream of granule-channel rows ON THE DEVICE, so that the host downloads
-the coded bytes (an entropy-sized payload) instead of the spectra, and the
-C++ row emitter is bypassed.
+the coded bytes (an entropy-sized payload) instead of the spectra: the one
+emitter of encode_batch.
 
 Formulation:
   - the big-values/count1/rzero split, region ids and table columns reuse
@@ -19,8 +19,8 @@ Formulation:
     bits are disjoint, so add is or, and integer adds give the same words
     in any order. Words are int64 masked to 32 bits.
 
-Byte-identical to huffcode.encode_granule and the C++ emitter (tested row
-for row).
+Byte-identical to huffcode.encode_granule, the reference (tested row for
+row).
 """
 from __future__ import annotations
 
@@ -32,8 +32,8 @@ from .vloop_device import bit_length4, pick_sfc, split_spectrum
 
 SPF = 576
 FIELDS = 36 + 288 * 5 + 144 * 5          # sf + pairs + quads
-# 4095-bit part2_3 max = 128 words + 1 spill; 130 words == the C++
-# emitter's 520-byte row cap, so device byte rows drop straight in
+# 4095-bit part2_3 max = 128 words + 1 spill; 130 words = 520-byte rows, the
+# row width of the packed mux's input
 CAP_WORDS = 130
 
 

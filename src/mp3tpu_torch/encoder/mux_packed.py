@@ -1,7 +1,7 @@
 """Packed-bytes bitstream mux (SURVEY.md E6, batch fast path).
 
 Counterpart of mp3tpu.encoder.mux_packed. assemble_stream() is
-ReservoirMux + build-frame re-expressed over the row emitter's packed
+ReservoirMux + build-frame re-expressed over the device emitter's packed
 granule bytes: the logical main-data stream is assembled by OR-ing each
 granule's byte block in at its bit offset (one vectorized shift per granule
 instead of per-bit list appends), side info packs via one

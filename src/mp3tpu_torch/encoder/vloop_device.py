@@ -13,7 +13,7 @@ Division of labor (the lockstep invariant):
   * the DEVICE's final quantize at the chosen parameters IS the emitted
     spectrum, and its integer bit count and table selection are EXACT for
     that spectrum (integer tensors throughout, bit for bit the count of
-    vcount and of the emitters: tested). The bisection guarantee
+    vcount and of the device emitter: tested). The bisection guarantee
     bits <= budget therefore transfers to emission directly: count == emit,
     the contract the reservoir replay relies on;
   * the HOST keeps all loop CONTROL (budgets, reservoir walks, overdraft
@@ -444,15 +444,15 @@ class _Pending:
     """One group's loop results, kept as device tensors [n, ...] so that the
     caller can decide LATER which outputs and rows to bring to the host.
     Used by encode_batch's two-pass reservoir walk: pass A only needs the
-    per-row bit counts and scalefactors to plan upgrades, and the rows that
-    pass B re-quantizes are never downloaded.
+    per-row bit counts and scalefactors to plan upgrades, the rows that
+    pass B re-quantizes are never emitted, and the kept rows come down as
+    packed bytes (emit_and_take).
 
     Keys: gg, has, ix (int16), bits, selr (TABLE_IDS columns), c1; the outer
     loops add sf, conv, iters, and the short one sbg."""
 
     def __init__(self, out: dict, sample_rate: int):
         self.out = out
-        self.n = int(out["gg"].shape[0])
         self.sample_rate = sample_rate
 
     def take(self, *names):
@@ -538,50 +538,24 @@ ITER_STATS: dict = {}   # kind -> np.int64[max_iters + 1] bincount of the
 #                         telemetry); filled when MP3TPU_ITER_HIST=1
 
 
-def _iter_stats_add(kind, iters):
-    if not os.environ.get("MP3TPU_ITER_HIST"):
+def take_iter_stats(pend: _Pending, label: str):
+    """Fold a pending group's per-row outer-iteration counters into
+    ITER_STATS under `label` (a no-op unless MP3TPU_ITER_HIST=1; rate-only
+    groups have no counters). encode_batch calls it for every group it
+    emits rows of."""
+    if not os.environ.get("MP3TPU_ITER_HIST") or "iters" not in pend.out:
         return
-    h = np.bincount(np.asarray(iters, np.int64))
-    cur = ITER_STATS.get(kind, np.zeros(0, np.int64))
+    h = np.bincount(np.asarray(pend.take("iters")[0], np.int64))
+    cur = ITER_STATS.get(label, np.zeros(0, np.int64))
     new = np.zeros(max(len(h), len(cur)), np.int64)
     new[: len(cur)] += cur
     new[: len(h)] += h
-    ITER_STATS[kind] = new
+    ITER_STATS[label] = new
 
 
-def take_iter_stats(pend: _Pending, label: str):
-    """Fold a pending group's per-row outer-iteration counters into
-    ITER_STATS (a no-op unless MP3TPU_ITER_HIST=1). Used by the device-emit
-    path, which never routes through post_long/post_short."""
-    if os.environ.get("MP3TPU_ITER_HIST") and "iters" in pend.out:
-        _iter_stats_add(label, pend.take("iters")[0])
-
-
-def post_long(raw: dict, label="long"):
-    """Fetched long-loop outputs -> the public tuple (gg, sf [R,21], has,
-    ix [R,576] i16: the spectrum to EMIT, bits [R] exact huffman+sign bits,
-    tsel [R,3] table ids, c1table [R])."""
-    _iter_stats_add(label, raw["iters"])
-    return (raw["gg"], raw["sf"], raw["has"], raw["ix"],
-            raw["bits"].astype(np.int64), _TID[raw["selr"].astype(np.int64)],
-            raw["c1"].astype(np.int64))
-
-
-def post_short(raw: dict, label="short"):
-    """As post_long for short blocks: sf [R,3,12], and sbg [R,3] after it."""
-    _iter_stats_add(label, raw["iters"])
-    return (raw["gg"], raw["sf"], raw["sbg"], raw["has"], raw["ix"],
-            raw["bits"].astype(np.int64), _TID[raw["selr"].astype(np.int64)],
-            raw["c1"].astype(np.int64))
-
-
-def post_rate(raw: dict):
-    return (raw["gg"], raw["has"], raw["ix"], raw["bits"].astype(np.int64),
-            _TID[raw["selr"].astype(np.int64)], raw["c1"].astype(np.int64))
-
-
-# Pending variants: run the loops and return the _Pending with nothing
-# downloaded; the caller takes what it needs when it needs it.
+# The loops' entry points: each runs its loop over rows gathered on the
+# device and returns the _Pending with nothing downloaded; the caller takes
+# what it needs when it needs it (_Pending.take, fetch_rows, emit_and_take).
 
 def outer_rows_gathered_pending(xr_dev, xmin_dev, idx, budgets, sample_rate,
                                 max_iters=16, block_type=0) -> _Pending:
@@ -604,83 +578,3 @@ def rate_rows_gathered_pending(xr_dev, idx, budgets, sample_rate,
                                block_type) -> _Pending:
     fn = lambda t, xr, bud: _rate_only(t, xr, bud, bool(block_type))
     return _run_gathered(fn, sample_rate, xr_dev, None, idx, budgets)
-
-
-# Light variants: download ONLY the planning outputs (scalefactors and exact
-# bit counts: what the pass-B reservoir walk consumes); the spectra stay on
-# the device inside the returned _Pending until the caller knows which rows
-# survive pass B.
-
-def outer_rows_gathered_light(xr_dev, xmin_dev, idx, budgets, sample_rate,
-                              max_iters=16, block_type=0):
-    pend = outer_rows_gathered_pending(xr_dev, xmin_dev, idx, budgets,
-                                       sample_rate, max_iters, block_type)
-    sf, bits = pend.take("sf", "bits")
-    return (sf, bits.astype(np.int64)), pend
-
-
-def outer_rows_short_gathered_light(xr_dev, xmin_dev, idx, budgets,
-                                    sample_rate, max_iters=12):
-    pend = outer_rows_short_gathered_pending(xr_dev, xmin_dev, idx, budgets,
-                                             sample_rate, max_iters)
-    sf, bits = pend.take("sf", "bits")
-    return (sf, bits.astype(np.int64)), pend
-
-
-def rate_rows_gathered_light(xr_dev, idx, budgets, sample_rate, block_type):
-    pend = rate_rows_gathered_pending(xr_dev, idx, budgets, sample_rate,
-                                      block_type)
-    (bits,) = pend.take("bits")
-    return (bits.astype(np.int64),), pend
-
-
-# Eager variants: everything to the host.
-
-def outer_rows_gathered(xr_dev, xmin_dev, idx, budgets, sample_rate,
-                        max_iters=16, block_type=0):
-    """One full-depth outer-loop pass for all rows."""
-    pend = outer_rows_gathered_pending(xr_dev, xmin_dev, idx, budgets,
-                                       sample_rate, max_iters, block_type)
-    return post_long(pend.fetch_rows(),
-                     label="switched" if block_type else "long")
-
-
-def outer_rows_short_gathered(xr_dev, xmin_dev, idx, budgets, sample_rate,
-                              max_iters=12):
-    pend = outer_rows_short_gathered_pending(xr_dev, xmin_dev, idx, budgets,
-                                             sample_rate, max_iters)
-    return post_short(pend.fetch_rows())
-
-
-def rate_rows_gathered(xr_dev, idx, budgets, sample_rate, block_type):
-    pend = rate_rows_gathered_pending(xr_dev, idx, budgets, sample_rate,
-                                      block_type)
-    return post_rate(pend.fetch_rows())
-
-
-# Host-array variants: rows, xmin and budgets come from numpy.
-
-def _dev_f32(a, device):
-    return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
-
-
-def outer_rows_device(xr, xmin, budget_bits, sample_rate, max_iters=16,
-                      device="cuda"):
-    """Device outer loop (long blocks) on host arrays; post_long's tuple."""
-    return outer_rows_gathered(_dev_f32(xr, device), _dev_f32(xmin, device),
-                               np.arange(len(xr)), budget_bits, sample_rate,
-                               max_iters)
-
-
-def outer_rows_short_device(xr, xmin, budget_bits, sample_rate, max_iters=12,
-                            device="cuda"):
-    """As outer_rows_device for short (window-switched) blocks; adds sbg."""
-    return outer_rows_short_gathered(
-        _dev_f32(xr, device), _dev_f32(xmin, device), np.arange(len(xr)),
-        budget_bits, sample_rate, max_iters)
-
-
-def rate_rows_device(xr, budget_bits, sample_rate, block_type, device="cuda"):
-    """Rate-only device bisection (no shaping / window-switched rows)."""
-    return rate_rows_gathered(_dev_f32(xr, device), np.arange(len(xr)),
-                              budget_bits, sample_rate, block_type)

@@ -1,7 +1,7 @@
 """Build a native source of this package at first use: a CUDA source with
 nvcc (the kernels, loaded with ctypes by their wrappers) or the C++ host
-library with g++ (the unpacker, the encoder's row emitter and the stream mux
-in one library, loaded by bitstream/native.py). Beside them, for
+library with g++ (the unpacker and the encoder's stream mux in one library,
+loaded by bitstream/native.py). Beside them, for
 mp3tpu_torch/sanitize.py only: the same host library under AddressSanitizer
 and UndefinedBehaviorSanitizer (build_sanitized), and the executables of the
 harnesses csrc/fuzz_main.cpp and csrc/prof_main.cpp, each linked with
@@ -42,7 +42,7 @@ CXX_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-std=c++17", "-fPIC",
              "-Wall", "-Wextra", "-fno-exceptions", "-shared")
 # sources compiled into the library of the source that names it, as the
 # Makefile links them into one
-COMPANIONS = {"unpack.cpp": ("encode_rows.cpp", "mux_stream.cpp")}
+COMPANIONS = {"unpack.cpp": ("mux_stream.cpp",)}
 # src/mp3tpu/native/Makefile's asan target: the host library under
 # AddressSanitizer and UndefinedBehaviorSanitizer
 SANITIZE_FLAGS = ("-O1", "-g", "-std=c++17", "-fPIC",

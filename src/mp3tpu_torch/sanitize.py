@@ -9,12 +9,11 @@ Three parts:
 * host, on the CPU, under AddressSanitizer and UndefinedBehaviorSanitizer:
   the fuzz harness csrc/fuzz_main.cpp (random byte strings salted with sync
   words, then copies of a real stream with 64 bytes mutated each, through
-  mp3tpu_probe / mp3tpu_unpack in all four plane modes); 300 trials of
+  mp3tpu_probe / mp3tpu_unpack in all four plane modes); and 300 trials of
   mp3tpu_mux_stream with tools/mux_asan_fuzz.py's randomised, walk-valid
-  inputs and edge shapes; and the same scheme over mp3tpu_encode_rows with
-  inputs that keep its preconditions. The mux and the row emitter run
-  through the sanitized library (kernels/build.build_sanitized) and are
-  held to the production library byte for byte. Each part runs in a child
+  inputs and edge shapes. The mux runs through the sanitized library
+  (kernels/build.build_sanitized) and is held to the production library
+  byte for byte. Each part runs in a child
   process with the sanitizer's runtime preloaded (this Python was not built
   with it); any report fails the run with its last 2,000 characters.
 * device, on a CUDA card: the kernel cases (fused_cases, synth_cases: every plane
@@ -80,7 +79,7 @@ REPORT = re.compile(r"ERROR: AddressSanitizer|ERROR: LeakSanitizer|"
 # the bench's plane mode: 4-bit plane, position-free escape sideband, byte
 # exponents (the fuzz harness rotates through it and 12, 8, 4)
 BENCH_PLANES = 4 | 0x10
-FUZZ_SEED = 0  # of the mux and encode_rows trials
+FUZZ_SEED = 0  # of the mux trials
 
 
 class SanitizerError(AssertionError):
@@ -157,32 +156,20 @@ def fuzz_unpacker(stream: bytes, iters: int = 200) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def _fuzz_child(kind: str, trials: int) -> dict:
-    """`trials` of the fuzz `kind` ("mux" or "encode_rows") through the
-    sanitized library in a child process; its summary."""
+def fuzz_mux(trials: int = 300) -> dict:
+    """mp3tpu_mux_stream under the sanitizers (tools/mux_asan_fuzz.py's
+    scheme), `trials` of them through the sanitized library in a child
+    process: every result within out_cap, and equal to the production
+    library's, bytes included. Returns the child's summary."""
     asan = build.build_sanitized()
     prod = build.build("unpack.cpp")
     t0 = time.perf_counter()
     out = run_sanitized([sys.executable, "-m", "mp3tpu_torch.sanitize",
-                         "--child", kind, str(asan), str(prod), str(trials)],
-                        f"{kind} fuzz")
+                         "--child", str(asan), str(prod), str(trials)],
+                        "mux fuzz")
     summary = json.loads(out.strip().splitlines()[-1])
     summary["seconds"] = time.perf_counter() - t0
     return summary
-
-
-def fuzz_mux(trials: int = 300) -> dict:
-    """mp3tpu_mux_stream under the sanitizers (tools/mux_asan_fuzz.py's
-    scheme): every result within out_cap, and equal to the production
-    library's, bytes included."""
-    return _fuzz_child("mux", trials)
-
-
-def fuzz_encode_rows(trials: int = 300) -> dict:
-    """mp3tpu_encode_rows under the sanitizers: the return code agrees with
-    the rows' overflow flags, no row's bit count passes its capacity, and
-    every row equals the production library's."""
-    return _fuzz_child("encode_rows", trials)
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -191,8 +178,6 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mp3tpu_mux_stream.argtypes = (
         [P, ctypes.c_int64, ctypes.c_int64] + [P] * 11 + [I32] * 6
         + [P, ctypes.c_int64])
-    lib.mp3tpu_encode_rows.restype = ctypes.c_int
-    lib.mp3tpu_encode_rows.argtypes = [P] * 7 + [I32] * 2 + [P, I32, P]
     return lib
 
 
@@ -254,83 +239,23 @@ def mux_trials(libs: list, trials: int, seed: int) -> dict:
     return results
 
 
-def encode_rows_trials(libs: list, trials: int, seed: int) -> dict:
-    """Random rows through mp3tpu_encode_rows in each library of `libs`, in
-    tools/mux_asan_fuzz.py's manner: every layout of csrc/encode_rows.cpp's
-    contract (ix [R,576] with |v| <= 8206, the largest value 13 linbits
-    code, block types 0-3, scalefactors within their 4- and 3-bit fields,
-    tables 0-31, count1 table 0/1, sample-rate index 0-8, out_bits zeroed),
-    edge shapes (all-zero rows, rows of the largest values, a capacity of
-    one byte). Raises unless the return code agrees with the overflow
-    flags, no row that fits writes past its capacity and all libraries
-    agree on every bit and field."""
-    rng = np.random.default_rng(seed)
-    results = {"rows": 0, "overflowed": 0}
-    for trial in range(trials):
-        R = int(rng.integers(1, 17))
-        ix = rng.integers(-15, 16, (R, 576)).astype(np.int16)
-        ix[rng.random((R, 576)) < 0.3] = 0
-        small = rng.random((R, 576)) < 0.3
-        ix[small] = rng.integers(-1, 2, int(small.sum()))
-        big = rng.random((R, 576)) < 0.02
-        ix[big] = rng.integers(-8206, 8207, int(big.sum()))
-        ix[np.arange(576) >= rng.integers(0, 577, (R, 1))] = 0  # rzero tails
-        if trial % 7 == 0:
-            ix[:] = 0
-        if trial % 11 == 0:
-            ix[:] = np.where(rng.random((R, 576)) < 0.5, 8206, -8206)
-        bt = rng.integers(0, 4, R).astype(np.uint8)
-        use_sf = rng.integers(0, 2, R).astype(np.uint8)
-        lsf = np.concatenate([rng.integers(0, 16, (R, 11)),
-                              rng.integers(0, 8, (R, 10))], 1).astype(np.int16)
-        ssf = np.concatenate([rng.integers(0, 16, (R, 3, 6)),
-                              rng.integers(0, 8, (R, 3, 6))], 2
-                             ).reshape(R, 36).astype(np.int16)
-        tsel = rng.integers(0, 32, (R, 3)).astype(np.int16)
-        c1 = rng.integers(0, 2, R).astype(np.uint8)
-        sr9 = int(rng.integers(0, 9))
-        cap = 1 if trial % 13 == 0 else int(rng.integers(1, 1200))
-        got = []
-        for lib in libs:
-            bits = np.zeros((R, cap), np.uint8)
-            meta = np.zeros((R, 6), np.int32)
-            r = lib.mp3tpu_encode_rows(
-                _ptr(ix), _ptr(bt), _ptr(use_sf), _ptr(lsf), _ptr(ssf),
-                _ptr(tsel), _ptr(c1), sr9, R, _ptr(bits), cap, _ptr(meta))
-            ovf = meta[:, 5].astype(bool)
-            if r != (-1 if ovf.any() else 0):
-                raise AssertionError(f"encode_rows trial {trial}: returned "
-                                     f"{r} with overflow flags {ovf}")
-            if (meta[~ovf, 0] > 8 * cap).any():
-                raise AssertionError(f"encode_rows trial {trial}: a row that "
-                                     f"fits counts more than {8 * cap} bits")
-            got.append((r, bits.tobytes(), meta.tobytes()))
-        if any(g != got[0] for g in got[1:]):
-            raise AssertionError(f"encode_rows trial {trial}: the libraries "
-                                 "differ")
-        results["rows"] += R
-        results["overflowed"] += int(ovf.sum())
-    return results
-
-
 def child_main(argv: list) -> int:
-    """The sanitized child: `kind asan_lib prod_lib trials`; prints its
-    summary as the last line."""
-    kind, asan, prod, trials = argv
+    """The sanitized child: `asan_lib prod_lib trials` of the mux fuzz;
+    prints its summary as the last line."""
+    asan, prod, trials = argv
     libs = [_declare(ctypes.CDLL(p)) for p in (asan, prod)]
-    fn = {"mux": mux_trials, "encode_rows": encode_rows_trials}[kind]
-    summary = {"kind": kind, "trials": int(trials),
-               **fn(libs, int(trials), FUZZ_SEED)}
+    summary = {"kind": "mux", "trials": int(trials),
+               **mux_trials(libs, int(trials), FUZZ_SEED)}
     print(json.dumps(summary), flush=True)
     return 0
 
 
 def host() -> dict:
-    """The host part: the fuzz harness, the mux fuzz and the encode_rows
-    fuzz under the sanitizers."""
+    """The host part: the fuzz harness and the mux fuzz under the
+    sanitizers."""
     build_host()
     return {"fuzz_driver": fuzz_unpacker(BENCH_CLIP.read_bytes()),
-            "mux": fuzz_mux(), "encode_rows": fuzz_encode_rows()}
+            "mux": fuzz_mux()}
 
 
 # ---------------------------------------------------------------- profile
@@ -1145,8 +1070,8 @@ def main(argv=None) -> int:
         description="Sanitizer runs over the port's native code and the "
                     "unpacker's section profile.")
     ap.add_argument("--host", action="store_true",
-                    help="the C++ under ASan/UBSan: fuzz harness, mux, "
-                         "encode_rows (CPU)")
+                    help="the C++ under ASan/UBSan: fuzz harness and mux "
+                         "(CPU)")
     ap.add_argument("--device", action="store_true",
                     help="the CUDA kernels and the decode path under "
                          "compute-sanitizer (needs a card)")

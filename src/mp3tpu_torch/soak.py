@@ -11,7 +11,8 @@ routes into it, corrupted streams included. On a card every step launches
 csrc/fused_z.cu (C1-C5) and csrc/synth.cu (C6-C7).
 
 check_report() raises on any broken invariant of the report run_soak()
-returns:
+returns (check_session() holds all but the two rates, check_rates() those
+two, which read host walls):
 * no stream lost: every submitted stream finishes;
 * exact accounting: every stream, clean, corrupted or ring-drained, routes
   exactly the sample count its own container scan implies;
@@ -436,65 +437,80 @@ def run_soak(total_audio_s: float = 3600.0, n_slots: int = 8, win: int = 32,
     return report
 
 
+def _need(ok, what) -> None:
+    if not ok:
+        raise AssertionError(f"soak: {what}")
+
+
 def check_report(rep: dict) -> None:
     """Raise AssertionError naming the first broken invariant of a run_soak
     report (see the module's docstring)."""
-    def need(ok, what):
-        if not ok:
-            raise AssertionError(f"soak: {what}")
+    check_session(rep)
+    check_rates(rep)
 
+
+def check_rates(rep: dict) -> None:
+    """The report's two wall-clock invariants: every wave faster than
+    realtime, and the last third of the waves at least 0.6 of the first
+    third's rate."""
+    _need(rep["min_wave_x"] >= 1.0,
+          f"a wave ran at {rep['min_wave_x']}x realtime")
+    _need(rep["last_third_x"] >= 0.6 * rep["first_third_x"],
+          f"throughput decayed: last third {rep['last_third_x']}x, first "
+          f"{rep['first_third_x']}x")
+
+
+def check_session(rep: dict) -> None:
+    """Every invariant of check_report but check_rates': accounting, the
+    fault counters, the clean streams against decode_file, and bounded
+    memory."""
     m = rep["metrics"]
     rows = rep["accounting"]
-    need(rep["n_streams"] >= 1 and len(rows) == rep["n_streams"]
-         == rep["streams_sample_checked"],
-         f"{len(rows)} streams accounted of {rep['n_streams']}")
-    need(m["streams_finished"] == rep["n_streams"],
-         f"streams lost: {m['streams_finished']} of {rep['n_streams']} finished")
-    need(rep["scheduler_drained"], "scheduler stuck: slots active or queued")
+    _need(rep["n_streams"] >= 1 and len(rows) == rep["n_streams"]
+          == rep["streams_sample_checked"],
+          f"{len(rows)} streams accounted of {rep['n_streams']}")
+    _need(m["streams_finished"] == rep["n_streams"],
+          f"streams lost: {m['streams_finished']} of {rep['n_streams']} finished")
+    _need(rep["scheduler_drained"], "scheduler stuck: slots active or queued")
     bad = [r for r in rows if r[3] != r[4]]
-    need(not bad, f"sample accounting off for {len(bad)} streams "
-         f"([stream, kind, sink, expected, routed]): {bad[:5]}")
+    _need(not bad, f"sample accounting off for {len(bad)} streams "
+          f"([stream, kind, sink, expected, routed]): {bad[:5]}")
     kinds = {k: sum(r[1] == k for r in rows) for k in rep["n_kind"]}
-    need(kinds == rep["n_kind"]
-         and sum(kinds.values()) == rep["n_corrupted"],
-         f"corruption counts {rep['n_kind']} against the streams' {kinds}")
-    need(all(v >= 1 for v in kinds.values()),
-         f"a corruption kind never ran: {kinds}")
+    _need(kinds == rep["n_kind"]
+          and sum(kinds.values()) == rep["n_corrupted"],
+          f"corruption counts {rep['n_kind']} against the streams' {kinds}")
+    _need(all(v >= 1 for v in kinds.values()),
+          f"a corruption kind never ran: {kinds}")
     ring = [r for r in rows if r[2] == "ring"]
-    need(len(ring) == rep["n_ring_consumers"]
-         and {r[1] == "clean" for r in ring} == {True, False},
-         "ring consumers must drain clean and corrupted streams")
-    need(rep["ring_samples_drained"] == sum(r[4] for r in ring) > 0,
-         f"ring consumers drained {rep['ring_samples_drained']} samples")
+    _need(len(ring) == rep["n_ring_consumers"]
+          and {r[1] == "clean" for r in ring} == {True, False},
+          "ring consumers must drain clean and corrupted streams")
+    _need(rep["ring_samples_drained"] == sum(r[4] for r in ring) > 0,
+          f"ring consumers drained {rep['ring_samples_drained']} samples")
     # the fault taxonomy reached the scheduler's counters
     for key in ("frames_ok", "frames_error", "granules_muted", "resyncs"):
-        need(m[key] > 0, f"metrics.{key} is {m[key]}")
-    need(m["underruns"] == 0, f"{m['underruns']} underruns")
+        _need(m[key] > 0, f"metrics.{key} is {m[key]}")
+    _need(m["underruns"] == 0, f"{m['underruns']} underruns")
     # every clean stream that no ring drains was held to decode_file
     clean = [r for r in rows if r[1] == "clean" and r[2] != "ring"]
-    need(all(r[2] == "check" for r in clean)
-         and rep["clean_streams_checked"] == len(clean) >= 1,
-         f"{rep['clean_streams_checked']} clean streams checked of "
-         f"{len(clean)}")
-    need(rep["clean_misaligned"] == 0,
-         f"{rep['clean_misaligned']} clean streams out of line with decode_file")
-    need(rep["clean_max_abs_lsb"] <= 1 and rep["clean_min_exact"] >= 0.98,
-         f"clean streams against decode_file: max {rep['clean_max_abs_lsb']} "
-         f"LSB, exact share {rep['clean_min_exact']}")
-    # realtime, no decay, bounded memory
-    need(rep["min_wave_x"] >= 1.0,
-         f"a wave ran at {rep['min_wave_x']}x realtime")
-    need(rep["last_third_x"] >= 0.6 * rep["first_third_x"],
-         f"throughput decayed: last third {rep['last_third_x']}x, first "
-         f"{rep['first_third_x']}x")
-    need(rep["rss_growth_post_warmup_mb"] < 300.0,
-         f"RSS grew {rep['rss_growth_post_warmup_mb']} MB after wave 1")
+    _need(all(r[2] == "check" for r in clean)
+          and rep["clean_streams_checked"] == len(clean) >= 1,
+          f"{rep['clean_streams_checked']} clean streams checked of "
+          f"{len(clean)}")
+    _need(rep["clean_misaligned"] == 0,
+          f"{rep['clean_misaligned']} clean streams out of line with decode_file")
+    _need(rep["clean_max_abs_lsb"] <= 1 and rep["clean_min_exact"] >= 0.98,
+          f"clean streams against decode_file: max {rep['clean_max_abs_lsb']} "
+          f"LSB, exact share {rep['clean_min_exact']}")
+    # bounded memory
+    _need(rep["rss_growth_post_warmup_mb"] < 300.0,
+          f"RSS grew {rep['rss_growth_post_warmup_mb']} MB after wave 1")
     if rep["device"].startswith("cuda"):
         drift = rep["device_alloc_growth_post_warmup_mb"]
-        need(drift <= 1.0, f"memory_allocated moved {drift} MiB after wave 1")
-        need(rep["device_reserved_growth_post_warmup_mb"] <= 64.0,
-             f"memory_reserved grew "
-             f"{rep['device_reserved_growth_post_warmup_mb']} MiB after wave 1")
+        _need(drift <= 1.0, f"memory_allocated moved {drift} MiB after wave 1")
+        _need(rep["device_reserved_growth_post_warmup_mb"] <= 64.0,
+              f"memory_reserved grew "
+              f"{rep['device_reserved_growth_post_warmup_mb']} MiB after wave 1")
 
 
 def main(argv=None) -> int:

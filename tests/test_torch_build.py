@@ -18,8 +18,8 @@ REPO = Path(__file__).resolve().parents[1]
 def test_sources_lie_beside_the_package():
     assert build.CSRC == REPO / "src" / "mp3tpu_torch" / "csrc"
     names = {p.name for p in build.CSRC.iterdir()}
-    assert {"fused_z.cu", "synth.cu", "unpack.cpp", "encode_rows.cpp",
-            "mux_stream.cpp", "spec_tables.h"} <= names
+    assert {"fused_z.cu", "synth.cu", "unpack.cpp", "mux_stream.cpp",
+            "spec_tables.h"} <= names
 
 
 def test_pyproject_names_the_sources_as_package_data():

@@ -8,7 +8,8 @@ bytes, and decodes within 0.5 dB of its SNR and within 3 dB of encode_pcm's.
 Within the port, byte for byte: a rerun; int16 staging with labels from the
 device's float64 energies against float32 staging with host labels, and
 input that is not int16-origin against the same; a reused staging buffer;
-device emission on against off; any row-block size; encode(device_loops=True)
+the Python reference mux against the C++ mux; any row-block size;
+encode(device_loops=True)
 against encode_batch; transcode from a DecodedBatch against encode_batch of
 the handle's PCM.
 """
@@ -82,19 +83,17 @@ def test_int16_staging_bit_identical(pcms, encoded, monkeypatch):
                                      device="cpu") == encoded
 
 
-def test_device_emit_on_equals_off(pcms, encoded, monkeypatch):
-    """Device emission (packed bytes from emit_device) against the spectra
-    through the C++ row emitter, and through the Python emitter and mux."""
-    monkeypatch.setenv("MP3TPU_DEVICE_EMIT", "0")
-    assert mp3tpu_torch.encode_batch(pcms, SR, bitrate=128,
-                                     device="cpu") == encoded
+def test_python_mux_equals_the_native_mux(pcms, encoded, monkeypatch):
+    """With no C++ library, the Python reference mux (mux_packed's
+    _assemble_python) gives the bytes of the C++ mux; the rows come from
+    the device emitter either way."""
     monkeypatch.setenv("MP3TPU_NO_NATIVE", "1")
     monkeypatch.setattr(mux_packed, "FORCE_PYTHON_MUX", True)
     from mp3tpu_torch.bitstream import native
     monkeypatch.setattr(native, "_checked", False)
     monkeypatch.setattr(native, "_lib", None)
-    assert mp3tpu_torch.encode_batch(pcms[1:], SR, bitrate=128,
-                                     device="cpu") == encoded[1:]
+    assert mp3tpu_torch.encode_batch(pcms, SR, bitrate=128,
+                                     device="cpu") == encoded
     monkeypatch.setattr(native, "_checked", False)
 
 
@@ -118,7 +117,7 @@ def test_a_stream_alone_equals_the_stream_in_its_batch(pcms, encoded):
     dict(noise_shaping=False, reservoir=False, short_blocks=False),
     dict(bitrate=64, joint_stereo=False)], ids=str)
 def test_options(pcms, kw):
-    """The eager no-reservoir path, the plain rate loop and other bitrates:
+    """The no-reservoir path, the plain rate loop and other bitrates:
     conformant streams of the JAX package's sizes, SNR within 0.5 dB."""
     kw = dict(dict(bitrate=128), **kw)
     got = mp3tpu_torch.encode_batch(pcms[:2], SR, device="cpu", **kw)

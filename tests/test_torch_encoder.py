@@ -19,7 +19,7 @@ from mp3tpu.encoder import vloop_device as jvd
 from mp3tpu.encoder.psymodel import get_model as jax_get_model
 from mp3tpu_torch.encoder import device as tdev
 from mp3tpu_torch.encoder import emit_device as temit
-from mp3tpu_torch.encoder import native_emit, psy_device as tpsy
+from mp3tpu_torch.encoder import psy_device as tpsy
 from mp3tpu_torch.encoder import tables as ttab
 from mp3tpu_torch.encoder import vloop, vloop_device as tvd
 from mp3tpu_torch.encoder.huffcode import encode_granule
@@ -195,8 +195,7 @@ def _emit_case(name):
     "short_sf", "short_plain", "degenerate"])
 def test_emitter_exact(case):
     """words, nbits, bv, sfc, r0c, r1c equal the JAX emitter's on the same
-    (ix, sf, tsel, c1sel), and the bytes equal huffcode.encode_granule's and
-    the C++ row emitter's."""
+    (ix, sf, tsel, c1sel), and the bytes equal huffcode.encode_granule's."""
     rows, layout, use_sf, lsf, ssf = _emit_case(case)
     bt = LAYOUT_BT[layout]
     n = len(rows)
@@ -235,15 +234,6 @@ def test_emitter_exact(case):
         assert tuple(meta[i]) == (g.part2_3_length, g.big_values,
                                   g.scalefac_compress, g.region0_count,
                                   g.region1_count), i
-    # the C++ row emitter on the same rows
-    packed = native_emit.encode_rows_packed(
-        rows, np.full(n, bt), np.full(n, use_sf),
-        np.zeros((n, 21), np.int64) if lsf is None else lsf,
-        np.zeros((n, 3, 12), np.int64) if ssf is None else ssf,
-        tvd._TID[tsel], c1, SR)
-    assert packed is not None
-    assert np.array_equal(packed[0], got)
-    assert np.array_equal(packed[1][:, :5], meta)
 
 
 # ---- gather and staging: exact
@@ -393,6 +383,33 @@ def _loop_rows(rng, R):
     return xr.astype(np.float32), rng.integers(500, 3000, R).astype(np.int64)
 
 
+# the outputs of each kind of loop, in the order of the JAX package's tuples
+LOOP_KEYS = {"long": ("gg", "sf", "has", "ix", "bits", "selr", "c1"),
+             "short": ("gg", "sf", "sbg", "has", "ix", "bits", "selr", "c1"),
+             "rate": ("gg", "has", "ix", "bits", "selr", "c1")}
+
+
+def loop_pending(kind, xr, budgets, xmin=None, block_type=0):
+    """The port's loop `kind` ("long", "short" or "rate") over every row of
+    the host arrays xr (and xmin), through its pending entry point."""
+    t, idx = torch.as_tensor, np.arange(len(xr))
+    if kind == "long":
+        return tvd.outer_rows_gathered_pending(t(xr), t(xmin), idx, budgets,
+                                               SR, block_type=block_type)
+    if kind == "short":
+        return tvd.outer_rows_short_gathered_pending(t(xr), t(xmin), idx,
+                                                     budgets, SR)
+    return tvd.rate_rows_gathered_pending(t(xr), idx, budgets, SR, block_type)
+
+
+def run_loop(kind, xr, budgets, xmin=None, block_type=0):
+    """loop_pending's outputs on the host, as the JAX package's tuple of the
+    same loop: table selections as table ids."""
+    raw = loop_pending(kind, xr, budgets, xmin, block_type).fetch_rows()
+    raw["selr"] = tvd._TID[raw["selr"].astype(np.int64)]
+    return tuple(raw[k] for k in LOOP_KEYS[kind])
+
+
 def _check_contract(ix, bits, budgets, bt):
     """count == emit's first half: the reported bits are vcount's of the
     returned ix, and they fit the budget."""
@@ -407,8 +424,7 @@ def test_rate_loop(bt):
     rows with identical gg (measured 100% for both layouts: 48 rows, seed
     1)."""
     xr, budg = _loop_rows(np.random.default_rng(1), 48)
-    gg, has, ix, bits, tsel, c1 = tvd.rate_rows_device(xr, budg, SR, bt,
-                                                       device="cpu")
+    gg, has, ix, bits, tsel, c1 = run_loop("rate", xr, budg, block_type=bt)
     assert has.all()
     _check_contract(ix, bits, budg, bt)
     jgg, _h, jix, jbits, jtsel, _c = jvd.rate_rows_device(xr, budg, SR, bt)
@@ -435,9 +451,8 @@ def test_outer_loop_long(block_type):
     xr, budg = _loop_rows(rng, 40)
     xmin = _xmin(rng, xr, (21,))
     idx = np.arange(40)
-    gg, sf, has, ix, bits, tsel, c1 = tvd.outer_rows_gathered(
-        torch.as_tensor(xr), torch.as_tensor(xmin), idx, budg, SR,
-        block_type=block_type)
+    gg, sf, has, ix, bits, tsel, c1 = run_loop("long", xr, budg, xmin,
+                                               block_type)
     assert has.all() and sf.max() <= 15
     sfc = vloop.pick_sfc_rows(sf.astype(np.int64))
     _check_contract(ix, bits, budg - 11 * vloop._SLEN1[sfc]
@@ -458,8 +473,7 @@ def test_outer_loop_short():
     xr, budg = _loop_rows(rng, 32)
     xmin = _xmin(rng, xr, (3, 12))
     idx = np.arange(32)
-    gg, sf, sbg, has, ix, bits, tsel, c1 = tvd.outer_rows_short_gathered(
-        torch.as_tensor(xr), torch.as_tensor(xmin), idx, budg, SR)
+    gg, sf, sbg, has, ix, bits, tsel, c1 = run_loop("short", xr, budg, xmin)
     assert has.all() and sbg.max() <= 7
     sfc = vloop.pick_sfc_short_rows(sf.astype(np.int64))
     _check_contract(ix, bits, budg - 18 * (vloop._SLEN1[sfc]
@@ -477,13 +491,11 @@ def test_loops_do_not_depend_on_the_row_block(monkeypatch):
     rng = np.random.default_rng(7)
     xr, budg = _loop_rows(rng, 30)
     xl, xs = _xmin(rng, xr, (21,)), _xmin(rng, xr, (3, 12))
-    idx = np.arange(30)
 
     def run():
-        t = torch.as_tensor
-        return (tvd.outer_rows_gathered(t(xr), t(xl), idx, budg, SR)
-                + tvd.outer_rows_short_gathered(t(xr), t(xs), idx, budg, SR)
-                + tvd.rate_rows_gathered(t(xr), idx, budg, SR, 0))
+        return (run_loop("long", xr, budg, xl)
+                + run_loop("short", xr, budg, xs)
+                + run_loop("rate", xr, budg))
 
     whole = run()
     monkeypatch.setitem(tvd.ROW_BLOCK, "cpu", 7)
@@ -491,22 +503,50 @@ def test_loops_do_not_depend_on_the_row_block(monkeypatch):
         assert np.array_equal(a, b)
 
 
-def test_loop_rows_emit_to_their_count():
-    """Rows the loops produced: the device emitter lands on the loop's own
-    bit count and table selection, and on encode_granule's bytes."""
+@pytest.mark.parametrize("kind, layout", [
+    ("rate", "long"), ("long", "switched"), ("short", "short")])
+def test_loop_rows_emit_to_their_count(kind, layout):
+    """Rows the loops produced (the rate loop without scalefactors; the
+    outer long loop on the switched layout and the outer short loop, with
+    scalefactors, and subblock gains on short rows): the device emitter
+    lands on the loop's own bit count and table selection, and on
+    encode_granule's bytes and side-info fields."""
     rng = np.random.default_rng(5)
     xr, budg = _loop_rows(rng, 16)
-    pend = tvd.rate_rows_gathered_pending(torch.as_tensor(xr), np.arange(16),
-                                          budg, SR, 0)
-    by, m5, gg, tcols, c1, hb, sbg = pend.emit_and_take("long", False,
+    bt = LAYOUT_BT[layout]
+    xmin = (None if kind == "rate" else
+            _xmin(rng, xr, (3, 12) if kind == "short" else (21,)))
+    pend = loop_pending(kind, xr, budg, xmin, bt)
+    use_sf = kind != "rate"
+    by, m5, gg, tcols, c1, hb, sbg = pend.emit_and_take(layout, use_sf,
                                                         np.arange(16))
-    assert sbg is None and np.array_equal(m5[:, 0], hb)
     raw = pend.fetch_rows()
+    assert (sbg is None) == (kind != "short")
+    sfc = m5[:, 2].astype(np.int64)
+    if not use_sf:
+        sfb = 0
+    elif layout == "short":
+        sfb = 18 * (vloop._SLEN1[sfc] + vloop._SLEN2[sfc])
+    else:
+        sfb = 11 * vloop._SLEN1[sfc] + 10 * vloop._SLEN2[sfc]
+    assert np.array_equal(m5[:, 0], hb + sfb)
+    if use_sf:
+        assert raw["sf"].any()
+    if kind == "short":
+        assert sbg.any()
     for i in range(16):
-        g = encode_granule(raw["ix"][i].astype(np.int32), int(gg[i]), SR, 0,
+        kw = {}
+        if kind == "long":
+            kw = dict(long_sf=raw["sf"][i])
+        elif kind == "short":
+            kw = dict(short_sf=raw["sf"][i],
+                      subblock_gain=tuple(int(x) for x in sbg[i]))
+        g = encode_granule(raw["ix"][i].astype(np.int32), int(gg[i]), SR, bt,
                            tsel=tuple(int(t) for t in tvd._TID[tcols[i]]),
-                           c1table=int(c1[i]))
-        assert g.part2_3_length == int(m5[i, 0])
+                           c1table=int(c1[i]), **kw)
+        assert tuple(m5[i]) == (g.part2_3_length, g.big_values,
+                                g.scalefac_compress, g.region0_count,
+                                g.region1_count), i
         row = np.packbits(np.asarray(g.bits.bits, np.uint8))
         assert np.array_equal(by[i, : len(row)], row)
         assert not by[i, len(row):].any()

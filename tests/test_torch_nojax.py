@@ -61,8 +61,8 @@ def test_port_sources_import_no_jax():
     assert {"soak", "device_huffman_spike", "rate_loop_hist"} <= set(JAX_TOOLS)
     assert {os.path.join("encoder", f) for f in (
         "__init__.py", "batch.py", "device.py", "psy_device.py",
-        "vloop_device.py", "emit_device.py", "tables.py", "mux_packed.py",
-        "native_emit.py")} <= names
+        "vloop_device.py", "emit_device.py", "tables.py",
+        "mux_packed.py")} <= names
     for path in files:
         for mod in imported_modules(path):
             assert not any(mod == b or mod.startswith(b + ".")

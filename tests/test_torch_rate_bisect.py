@@ -84,8 +84,9 @@ def test_the_loops_bisect_through_the_wrapper(spans):
           ).astype(np.float32)
     xmin = np.full((9, 21), 1e-3, np.float32)
     with profiling.request("test"):
-        vd.outer_rows_gathered(torch.from_numpy(xr), torch.from_numpy(xmin),
-                               np.arange(9), np.full(9, 1500), SR)
+        vd.outer_rows_gathered_pending(torch.from_numpy(xr),
+                                       torch.from_numpy(xmin), np.arange(9),
+                                       np.full(9, 1500), SR)
     tot = spans["mp3tpu.encode.bisect/plain"]
     assert tot["count"] >= 1 and tot["items"] == 9 * tot["count"]
 

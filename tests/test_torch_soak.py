@@ -120,13 +120,22 @@ def test_reduced_session_equals_the_jax_harness(reports):
 
 
 def test_check_report_passes_on_the_reduced_session(reports):
+    """Every accounting, fault and memory invariant of check_report holds on
+    the reduced session (check_session), and on it as a card's report.
+    check_rates' two invariants compare the wall-clock rates of two waves of
+    about 1 s each on a host that other test workers share: they measure the
+    host, not the program (a run under load read a last third at 14.1x
+    realtime against a first at 24.7x). The card's hour-scale session holds
+    them (chip_smoke.py's soak phase, through check_report), and here the
+    planted _decay must fail check_report."""
     port, _ = reports
-    soak.check_report(port)
+    soak.check_session(port)
     assert port["clean_max_abs_lsb"] == 0 and port["clean_min_exact"] == 1.0
     assert port["device_alloc_growth_post_warmup_mb"] is None
+    assert port["min_wave_x"] > 0 and port["first_third_x"] > 0
     card = copy.deepcopy(port)
     _on_a_card(card, 0.25)
-    soak.check_report(card)
+    soak.check_session(card)
 
 
 def _off_by_one(rep):
